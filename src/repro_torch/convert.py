@@ -1,0 +1,70 @@
+"""Convert the JAX package's parameters into the port's.
+
+``from_jax_params`` takes the JAX param tree as plain numpy arrays —
+``Param`` leaves already unwrapped (``parallel/sharding.py::unzip``) and
+every leaf passed through ``np.asarray`` — and returns the port's tree on
+a device.  Dicts and lists keep their structure; convolution weights go
+from HWIO to OIHW.  Linear weights keep their (in, out) layout, and the
+models flatten NHWC before a fully connected layer, so no FC row needs
+permuting.  The result is checked against the port's own init for the
+same config, leaf by leaf, so a tree of the wrong architecture raises.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import device as DEV
+from repro_torch.models import get_family
+
+
+def tree_map(fn, tree):
+    """``fn`` on every leaf of a params tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def leaves(tree):
+    """The leaves of a params tree, in order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _to_port(leaf, device):
+    a = np.asarray(leaf)
+    if a.ndim == 4:                                   # conv HWIO -> OIHW
+        a = a.transpose(3, 2, 0, 1)
+    return torch.tensor(a, device=device)           # copies
+
+
+def _check(got, want, path="params"):
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise ValueError(f"{path}: keys {sorted(got)} != "
+                             f"{sorted(want)}")
+        for k in want:
+            _check(got[k], want[k], f"{path}[{k!r}]")
+    elif isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise ValueError(f"{path}: expected a list of {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _check(g, w, f"{path}[{i}]")
+    elif got.shape != want.shape:
+        raise ValueError(f"{path}: shape {tuple(got.shape)} != "
+                         f"{tuple(want.shape)}")
+
+
+def from_jax_params(values_tree, cfg, device=None):
+    """JAX value tree (numpy leaves) -> the port's params for ``cfg`` on
+    ``device`` (``None`` = the CUDA card)."""
+    dev = DEV.resolve(device)
+    params = tree_map(lambda a: _to_port(a, dev), values_tree)
+    _check(params, get_family(cfg).init(cfg, device="meta"))
+    for leaf in leaves(params):
+        if leaf.dtype != cfg.param_dtype:
+            raise TypeError(f"param dtype {leaf.dtype} != {cfg.param_dtype}")
+    return params

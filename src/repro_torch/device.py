@@ -1,0 +1,15 @@
+"""Device resolution shared by the port's entry points."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve(device=None) -> torch.device:
+    """``None`` means the CUDA card.  A CUDA device without CUDA raises;
+    the port never falls back to the CPU unless asked for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the port on "
+            "the CPU with the plain torch versions of its kernels")
+    return dev
