@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
 2. build   — nvcc builds ``src/repro_torch/csrc/*.cu`` into one library.
 3. kernels — each hand-written kernel against its plain torch version
    on the card over a sweep of shapes, then timed with CUDA events
-   (median of 21 blocks after warm-up) beside its bound.
+   (median of 21 blocks after warm-up) beside its bound; the public
+   ``softmax_confidence`` op on (..., V) card tensors against the CPU.
 4. engine  — VGG-16/CIFAR-10 at full width (4 exits, ~15.5 M params,
    seeded random init) through ``DartEngine``: calibration on
    synth-CIFAR, the joint-DP policy, then a median policy so rows exit
@@ -206,6 +207,33 @@ def check_exit_gate(ref, kern, gen):
     return worst
 
 
+def check_softmax_confidence(gen):
+    """``dispatch.softmax_confidence`` (the gate kernel with tau' = 1) on
+    (..., V) card tensors, one of them not contiguous, against the same
+    op on the CPU, which takes the plain version."""
+    from repro_torch.kernels import dispatch
+    worst = 0.0
+    for shape, dtype in (((4, 64, 10), torch.float32),
+                         ((3, 5, 1000), torch.bfloat16)):
+        lg = (torch.randn(*shape, device="cuda", generator=gen) * 4).to(dtype)
+        lg = lg.transpose(0, 1)
+        conf, pred = dispatch.softmax_confidence(lg)
+        want_conf, want_pred = dispatch.softmax_confidence(lg.cpu())
+        check(conf.device.type == pred.device.type == "cuda",
+              "softmax_confidence left the card")
+        check(conf.shape == pred.shape == want_conf.shape == lg.shape[:-1],
+              f"softmax_confidence shape {tuple(conf.shape)} at {shape}")
+        err = float((conf.cpu() - want_conf).abs().max())
+        check(err <= CONF_TOL, f"softmax_confidence conf off at {shape}")
+        check(torch.equal(pred.cpu(), want_pred),
+              f"softmax_confidence pred differs at {shape}")
+        emit(phase="kernels", kernel="exit_gate", op="softmax_confidence",
+             shape=list(lg.shape), dtype=str(dtype).removeprefix("torch."),
+             err_conf=err)
+        worst = max(worst, err)
+    return worst
+
+
 def check_difficulty(ref, kern, gen, cfg):
     kw = dict(tau_edge=cfg.tau_edge, var_scale=cfg.var_scale,
               grad_scale=cfg.grad_scale, w1=cfg.w_edge, w2=cfg.w_variance,
@@ -390,6 +418,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     gate_err = check_exit_gate(gref, gkern, gen)
+    softmax_err = check_softmax_confidence(gen)
     diff_err = check_difficulty(dref, dkern, gen, DEFAULT)
 
     vgg = drive_engine(VGG16_CIFAR, "vgg16-cifar", CIFAR, offset=2000)
@@ -408,7 +437,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/exit_gate.cu",
          "replaces": "src/repro/kernels/exit_gate/exit_gate_kernel.py:65",
          "launches": vgg["exit_gate"],
-         "max_abs_err": max(gate_err["conf"], gate_err["entropy"]),
+         "max_abs_err": max(gate_err["conf"], gate_err["entropy"],
+                            softmax_err),
          "ms": time_ms(lambda: gkern.exit_gate_cuda(lg, th)),
          "plain_ms": time_ms(lambda: gref.ref_exit_gate(lg, th)),
          "bound_ms": gate_b, "bound_by": gate_by, "library_ms": None,

@@ -20,6 +20,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve
+
 STRATEGIES = ("temporal", "class_aware", "hybrid", "frozen")
 
 
@@ -39,7 +41,9 @@ class AdaptiveConfig:
     update_every: int = 100         # small periodic updates
 
 
-def init_state(cfg: AdaptiveConfig, device="cpu"):
+def init_state(cfg: AdaptiveConfig, device=None):
+    """Fresh state on ``device`` (``None``: the CUDA card)."""
+    device = resolve(device)
     e1 = cfg.n_exits - 1
     w = cfg.window
 

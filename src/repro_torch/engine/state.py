@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core import adaptive as AD
 from repro_torch.core.routing import DartParams
+from repro_torch.device import resolve
 
 #: Default size of the per-request latency ring buffer.
 LAT_WINDOW = 2048
@@ -59,7 +60,9 @@ class EngineState:
     @classmethod
     def create(cls, n_exits: int, acfg: AD.AdaptiveConfig,
                dart: DartParams | None = None,
-               lat_window: int = LAT_WINDOW, device="cpu") -> "EngineState":
+               lat_window: int = LAT_WINDOW, device=None) -> "EngineState":
+        """Fresh state on ``device`` (``None``: the CUDA card)."""
+        device = resolve(device)
         dart = dart or DartParams.default(n_exits)
 
         def f32(x):

@@ -11,18 +11,13 @@ from repro_torch.models.cnn_zoo import AlexNetConfig, VGGConfig
 
 
 class _Family:
-    def __init__(self, init, forward, *, stem=None, stage=None, exit_=None,
-                 n_stages=None):
+    def __init__(self, init, forward, *, stem, stage, exit_, n_stages):
         self.init = init
         self.forward = forward
         self.apply_stem = stem
         self.apply_stage = stage
         self.apply_exit = exit_
         self.num_stages = n_stages
-
-    @property
-    def staged(self) -> bool:
-        return self.apply_stage is not None
 
 
 FAMILIES = {

@@ -20,20 +20,20 @@ import torch
 import torch.nn.functional as F
 
 
-def trunc_normal(shape, generator, *, std=0.02, device=None,
+def trunc_normal(shape, generator, *, std=0.02, device,
                  dtype=torch.float32):
     t = torch.empty(shape, dtype=dtype, device=device)
     return torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
                                        generator=generator)
 
 
-def he_normal(shape, generator, fan_in, *, device=None, dtype=torch.float32):
+def he_normal(shape, generator, fan_in, *, device, dtype=torch.float32):
     std = math.sqrt(2.0 / fan_in)
     return std * torch.randn(shape, generator=generator, device=device,
                              dtype=dtype)
 
 
-def linear_init(generator, in_dim, out_dim, *, device=None,
+def linear_init(generator, in_dim, out_dim, *, device,
                 dtype=torch.float32):
     """{"w": (in, out), "b": (out,)} — the JAX layout, ``x @ w + b``."""
     return {"w": trunc_normal((in_dim, out_dim), generator, device=device,
@@ -45,7 +45,7 @@ def linear(p, x):
     return x @ p["w"] + p["b"]
 
 
-def conv_init(generator, kh, kw, cin, cout, *, device=None,
+def conv_init(generator, kh, kw, cin, cout, *, device,
               dtype=torch.float32):
     """{"w": (cout, cin, kh, kw), "b": (cout,)}, He-normal."""
     return {"w": he_normal((cout, cin, kh, kw), generator, kh * kw * cin,

@@ -17,6 +17,10 @@ from repro_torch.core import policy as POL
 from repro_torch.core import routing as R
 from repro_torch.core import thresholds as TH
 
+# tiny tensors: one thread is faster than torch's pool, and leaves the
+# cores to the JAX side and to other test workers
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.asarray(a))
@@ -130,7 +134,7 @@ def _assert_state_close(got, want):
 def test_adaptive_matches_jax(ucb):
     kw = dict(n_exits=4, n_classes=10, window=50, ucb_enabled=ucb)
     cfg, jcfg = AD.AdaptiveConfig(**kw), jAD.AdaptiveConfig(**kw)
-    s, js = AD.init_state(cfg), jAD.init_state(jcfg)
+    s, js = AD.init_state(cfg, device="cpu"), jAD.init_state(jcfg)
     rs = np.random.RandomState(4)
     # 70 > window: the ring keeps the last 50 rows, like the in-order
     # scatter of the reference

@@ -20,6 +20,10 @@ from repro_torch.engine import DartEngine
 from repro_torch.engine import registry as REG
 from repro_torch.models import get_family
 
+# tiny tensors: one thread is faster than torch's pool, and leaves the
+# cores to the JAX side and to other test workers
+torch.set_num_threads(1)
+
 # conf, alpha: fp32 reductions and convolutions in another order
 CAL_ATOL = 1e-5
 # rows whose conf at a gate lies this close to tau' may route differently
@@ -34,6 +38,9 @@ CASES = {
 }
 JDATA = jDS.DatasetConfig(name="synth-cifar", n_train=256, n_eval=1024)
 DATA = DS.DatasetConfig(name="synth-cifar", n_train=256, n_eval=1024)
+# every batch the JAX engine sees in full is padded to this one bucket, so
+# it compiles its forward once per case
+BATCH = 128
 
 
 def _jax_layout(tree):
@@ -65,6 +72,13 @@ def engines(pair):
     return jeng, eng, (jeng.state, eng.state)
 
 
+@pytest.fixture(scope="module")
+def median_tau(engines):
+    """The median policy of each case, from one port calibration."""
+    return _median_policy(engines[1].collect_calibration(DATA, n=BATCH,
+                                                         batch=BATCH))
+
+
 def _reset(engines, adapt):
     jeng, eng, (jstate, state) = engines
     jeng.state, eng.state = jstate, state
@@ -92,8 +106,8 @@ def _edge_rows(masked):
 
 def test_calibration_and_policy_match_jax(engines):
     jeng, eng = _reset(engines, adapt=False)
-    jcal = jeng.collect_calibration(JDATA, n=128, batch=64)
-    cal = eng.collect_calibration(DATA, n=128, batch=64)
+    jcal = jeng.collect_calibration(JDATA, n=BATCH, batch=BATCH)
+    cal = eng.collect_calibration(DATA, n=BATCH, batch=BATCH)
     for k in ("conf", "correct", "alpha", "entropy"):
         np.testing.assert_allclose(getattr(cal, k), getattr(jcal, k),
                                    atol=CAL_ATOL, rtol=0, err_msg=k)
@@ -115,11 +129,10 @@ def _install(engines, tau):
         e.state = e.state.with_policy(tau=tau, beta_diff=0.3)
 
 
-def test_infer_modes_match_jax(engines):
+def test_infer_modes_match_jax(engines, median_tau):
     jeng, eng = _reset(engines, adapt=False)
-    _install((jeng, eng), _median_policy(
-        eng.collect_calibration(DATA, n=128, batch=64)))
-    x, _ = DS.make_batch(DATA, range(256, 456), split="eval")
+    _install((jeng, eng), median_tau)
+    x, _ = DS.make_batch(DATA, range(256, 256 + BATCH), split="eval")
     masked = eng.infer(x, mode="masked")
     compacted = eng.infer(x, mode="compacted")
     jmasked = jeng.infer(x, mode="masked")
@@ -146,14 +159,14 @@ def test_infer_modes_match_jax(engines):
                                atol=CAL_ATOL, rtol=0)
 
 
-def test_infer_options_match_jax(engines):
+def test_infer_options_match_jax(engines, median_tau):
     """alpha= (precomputed difficulty), pad_to= (masked) and min_exit=
     (head-skip under the sound bound) change no decision."""
     jeng, eng = _reset(engines, adapt=False)
-    tau = _median_policy(eng.collect_calibration(DATA, n=64, batch=64))
+    tau = median_tau.copy()
     tau[0] = 1.0                        # gate 0 can never fire
     _install((jeng, eng), tau)
-    x, _ = DS.make_batch(DATA, range(700, 760), split="eval")
+    x, _ = DS.make_batch(DATA, range(700, 800), split="eval")
     base = eng.infer(x, mode="compacted", record=False)
     alpha = base["alpha"]
     m = eng.min_exit_bound(float(alpha.min()))
@@ -165,7 +178,7 @@ def test_infer_options_match_jax(engines):
     masked = eng.infer(x, mode="masked", pad_to=eng.bucket_key(len(x)),
                        alpha=alpha)
     ok = ~_edge_rows(masked)
-    assert masked["exit_idx"].shape == (60,)
+    assert masked["exit_idx"].shape == (100,)
     for out in (skip, jskip):
         np.testing.assert_array_equal(np.asarray(out["exit_idx"])[ok],
                                       base["exit_idx"][ok])
@@ -180,10 +193,9 @@ def test_infer_options_match_jax(engines):
         eng.infer(x, mode="warp")
 
 
-def test_update_and_stats_match_jax(engines):
+def test_update_and_stats_match_jax(engines, median_tau):
     jeng, eng = _reset(engines, adapt=True)
-    _install((jeng, eng), _median_policy(
-        eng.collect_calibration(DATA, n=128, batch=64)))
+    _install((jeng, eng), median_tau)
     served = 0
     for a, z in ((456, 520), (520, 584), (584, 648)):
         x, _ = DS.make_batch(DATA, range(a, z), split="eval")
@@ -192,7 +204,10 @@ def test_update_and_stats_match_jax(engines):
         # coefficients in force now); the masked pass records nothing
         x = x[~_edge_rows(eng.infer(x, mode="masked"))]
         served += len(x)
-        out, jout = eng.infer(x), jeng.infer(x)
+        # the JAX side records through its masked path (the same
+        # decisions as its compacted one)
+        out = eng.infer(x)
+        jout = jeng.infer(x, mode="masked", record=True, pad_to=BATCH)
         np.testing.assert_array_equal(out["exit_idx"], jout["exit_idx"])
     eng.update()
     jeng.update()
@@ -220,7 +235,9 @@ def test_oversized_batch_splits_into_chunks(monkeypatch):
         device="cpu", adapt=False)
     cal = eng.collect_calibration(DATA, n=64, batch=64)
     eng.state = eng.state.with_policy(tau=_median_policy(cal), beta_diff=0.3)
-    x, _ = DS.make_batch(DATA, range(1500), split="eval")
+    # random images: 1500 synthetic ones take seconds to draw
+    x = np.random.RandomState(5).uniform(0, 1, (1500, 32, 32, 3)).astype(
+        np.float32)
     spans = []
     chunk = eng._infer_compacted_chunk
     monkeypatch.setattr(eng, "_infer_compacted_chunk",
@@ -248,6 +265,19 @@ def test_from_config_defaults_to_cuda_and_raises_without_it(monkeypatch):
         DartEngine.from_config(cfg, params, device="cuda")
     assert DartEngine.from_config(cfg, params, device="cpu").device.type \
         == "cpu"
+
+
+def test_state_constructors_default_to_cuda(monkeypatch):
+    from repro_torch.core import adaptive as AD
+    from repro_torch.engine.state import EngineState
+    acfg = AD.AdaptiveConfig(n_exits=3, n_classes=10)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: AD.init_state(acfg, **kw),
+                 lambda **kw: EngineState.create(3, acfg, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    st = EngineState.create(3, acfg, device="cpu")
+    assert st.tau.device.type == st.adaptive["ptr"].device.type == "cpu"
 
 
 def test_registry_unknown_names_raise():

@@ -23,6 +23,10 @@ from repro_torch.kernels.difficulty.ref import ref_components
 from repro_torch.kernels.exit_gate import kernel as gkernel
 from repro_torch.kernels.exit_gate.ref import ref_exit_gate
 
+# tiny tensors: one thread is faster than torch's pool, and leaves the
+# cores to the JAX side and to other test workers
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 # one compiled program per shape instead of one per op

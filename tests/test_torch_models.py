@@ -20,6 +20,10 @@ from repro_torch.models import cnn_zoo
 from repro_torch.models import get_family
 from repro_torch.models import layers as L
 
+# tiny tensors: one thread is faster than torch's pool, and leaves the
+# cores to the JAX side and to other test workers
+torch.set_num_threads(1)
+
 # CPU convolution algorithms differ between XLA and torch
 RTOL, ATOL = 1e-4, 1e-5
 
