@@ -11,6 +11,15 @@ Phases, each printing one JSON line:
    on the card over a sweep of shapes, then timed with CUDA events
    (median of 21 blocks after warm-up) beside its bound; the public
    ``softmax_confidence`` op on (..., V) card tensors against the CPU.
+   The LM exit head at (n_slots in 1, 16, 64, 100; 2048; 32000) and
+   (7, 72, 1003) in bf16 and f32: conf within 1e-5 of a float64
+   evaluation of the kernel's own fp32 semantics, pred equal to it
+   outside rows whose float64 top-2 gap is < 1e-4, and against the
+   plain bf16 chain pred equal outside its bf16 ties (top-2 gap within
+   one ulp of the max) and fire equal outside |conf - tau'| < 1e-5, both
+   exemptions counted; planted tau' = conf rows never fire.  The paged
+   gather bit-equal to its plain version at the decoder's shapes, with
+   page ids past both ends in the table.
 4. engine  — VGG-16/CIFAR-10 at full width (4 exits, ~15.5 M params,
    seeded random init) through ``DartEngine``: calibration on
    synth-CIFAR, the joint-DP policy, then a median policy so rows exit
@@ -23,13 +32,34 @@ Phases, each printing one JSON line:
    Each batch is served five times in each mode; samples/s is the
    median of the last four.
 5. engine  — the same for AlexNet/CIFAR-10.
-6. the kernels summary line, then the ``ok`` line.
+6. lm-strict — TinyLlama-1.1B at full width and depth in fp32 (seeded
+   random weights, tau per exit from quantiles of the first step's
+   conf): 40 requests of 16 new tokens over 16 slots (prompts of 16 to
+   64 tokens, admitted at most 4 a step, so admission and release happen
+   mid-run) through ``ContinuousLMDecoder`` (both kernels), against the
+   eager oracle on the card (plain head).  Tokens and exit stages must
+   be equal row for row; a row may differ from its first divergent step
+   on only if the oracle flags that step (top-2 logit gap < 1e-4 or
+   |conf - tau'| < 1e-5 at the deciding stage).
+7. lm-serving — the published bf16 configuration at n_slots 16 and 64
+   (max_len 1024): tokens/s (median of the timed runs), the decode step
+   and per-request prefill times, the exit-stage histogram, the mean
+   layer fraction, peak memory, a torch.profiler window of decode steps
+   (device busy share, kernels per step, the kernels that take the
+   time), and the launches of exit_head and paged_gather, exactly 4 and
+   44 per decode step; at 16 slots also the agreement with the bf16
+   eager oracle, each divergent row classed as flagged, as a
+   head-precision case (the kernel's fp32 head, run on the oracle's own
+   hidden rows, decides otherwise than the oracle's bf16 head) or as
+   neither.
+8. the kernels summary line, then the ``ok`` line.
 
 Any failed check raises: the script exits non-zero and prints no ``ok``
 line.  Without CUDA it exits 1 before printing anything.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -47,6 +77,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 #: the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+#: tensor-core peaks, dense: bf16 and TF32
+BF16_TC_OPS_PER_S = 989e12
+TF32_TC_OPS_PER_S = 495e12
 
 #: tolerances of the kernel checks (and why)
 CONF_TOL = 1e-5       # fp32 sums over V in another order
@@ -57,6 +90,23 @@ CPU_CONF_TOL = 1e-4
 
 #: passes over each engine batch in each mode; all but the first timed
 PASSES = 5
+
+#: LM exit head: the largest |conf - float64| and the float64 top-2 gap
+#: below which the first argmax may differ
+HEAD_CONF_TOL = 1e-5
+HEAD_GAP = 1e-4
+#: LM decode: an oracle decision is flagged (may flip between two paths
+#: whose logits differ in the low bits) when its top-2 logit gap or
+#: |conf - tau'| at the deciding stage is below these
+LM_GAP = 1e-4
+LM_EDGE = 1e-5
+#: Eq. 19 beta_diff of the LM runs: untrained heads give conf near 1/V
+#: (~1e-3 at V = 32000), so the paper's 0.3 * alpha would put every tau'
+#: far above any conf; 1e-4 keeps the difficulty term a fraction of the
+#: spread of conf
+LM_BETA = 1e-4
+#: timed serving runs per pool size (after one warm-up run)
+SERVE_RUNS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -265,6 +315,186 @@ def check_difficulty(ref, kern, gen, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: the LM kernels
+# ---------------------------------------------------------------------------
+
+def head_bounds(b, d, v, itemsize):
+    """(bound ms, bound_by, bytes ms, fp32-FMA ms) of the exit head.  The
+    bytes: table, h and scale read once, tau' read and three outputs
+    written once.  The operations: B*V*D products kept at fp32 accuracy,
+    which the tensor cores can give as three split-precision passes
+    (bf16 for 2-byte inputs, TF32 for fp32).  The last number is the
+    bound of this kernel's design, fp32 FMAs outside the tensor cores."""
+    nbytes = (v * d + b * d + d) * itemsize + b * 4 + b * 12
+    peak = BF16_TC_OPS_PER_S if itemsize == 2 else TF32_TC_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * 2 * b * v * d / peak * 1e3
+    fma = 2 * b * v * d / FP32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", t_bytes, fma)
+
+
+def exact_head(h, scale, table, eps=1e-6):
+    """conf, first argmax and top-2 logit gap of the kernel's own fp32
+    semantics (normalised row never cast back), in float64."""
+    x = h.double()
+    hn = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) \
+        * scale.double()
+    lg = hn @ table.double().T
+    top2 = lg.topk(2, dim=-1).values
+    conf = 1.0 / torch.exp(lg - top2[:, :1]).sum(-1)
+    return conf, lg.argmax(-1), top2[:, 0] - top2[:, 1]
+
+
+def plain_head_logits(h, scale, table, eps=1e-6):
+    """The plain chain's logits (normalised row cast to the model dtype,
+    unembedding in that dtype), for its tie exemption."""
+    x = h.float()
+    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
+    return (x * scale.float()).to(h.dtype) @ table.T
+
+
+def head_inputs(b, d, v, dtype, gen):
+    """An LM-like hidden batch (rms 1), rmsnorm scale near 1 and an
+    unembedding of std 0.02, with an exact tie at the top in even rows:
+    two equal table rows (one in each half of V) along the row's
+    direction."""
+    h = torch.randn(b, d, device="cuda", generator=gen)
+    scale = 1.0 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+    tab = 0.02 * torch.randn(v, d, device="cuda", generator=gen)
+    rows = torch.arange(0, b, 2, device="cuda")
+    i = (rows * 97) % (v // 2)
+    dirn = h[rows] * scale
+    dirn = 0.2 * dirn / dirn.norm(dim=1, keepdim=True)
+    tab[i] = dirn
+    tab[i + v // 2] = dirn
+    return h.to(dtype), scale.to(dtype), tab.to(dtype), i
+
+
+HEAD_CASES = ([(b, 2048, 32000, dt) for dt in (torch.bfloat16, torch.float32)
+               for b in (1, 16, 64)]
+              + [(100, 2048, 32000, torch.bfloat16)]
+              + [(7, 72, 1003, dt) for dt in (torch.bfloat16, torch.float32)])
+
+
+def check_exit_head(ref, kern, gen):
+    """Each case against a float64 evaluation and the plain chain; returns
+    (worst conf error, the row of the main-path case)."""
+    worst, main = 0.0, None
+    for b, d, v, dtype in HEAD_CASES:
+        h, scale, tab, tie_idx = head_inputs(b, d, v, dtype, gen)
+        conf0 = kern.exit_head_gate_cuda(
+            h, scale, tab, torch.zeros(b, device="cuda"))[0]
+        # tau' 25 % either side of conf, and tau' == conf in rows 1 mod 4
+        sign = torch.where(torch.rand(b, device="cuda", generator=gen) < 0.5,
+                           -1.0, 1.0)
+        th = conf0 * (1 + 0.25 * sign)
+        planted = torch.arange(b, device="cuda") % 4 == 1
+        th = torch.where(planted, conf0, th).contiguous()
+        conf, pred, fire = kern.exit_head_gate_cuda(h, scale, tab, th)
+        pconf, ppred, pfire = ref.ref_exit_head_gate(h, scale, tab, th)
+        torch.cuda.synchronize()
+        xconf, xpred, xgap = exact_head(h, scale, tab)
+        err = float((conf.double() - xconf).abs().max())
+        check(err <= HEAD_CONF_TOL,
+              f"exit_head conf off float64 by {err} at {(b, d, v, dtype)}")
+        near = xgap < HEAD_GAP
+        check(torch.equal(pred[~near].long(), xpred[~near]),
+              f"exit_head pred differs from float64 at {(b, d, v, dtype)}")
+        check(torch.equal(pred[0::2].long(), tie_idx),
+              "exit_head tie not resolved to the lowest index")
+        check(torch.equal(ppred[0::2].long(), tie_idx),
+              "plain exit head tie not resolved to the lowest index")
+        top2 = plain_head_logits(h, scale, tab).float().topk(2, -1).values
+        ulp = torch.finfo(dtype).eps * torch.exp2(
+            torch.floor(torch.log2(top2[:, 0].abs())))
+        plain_tie = (top2[:, 0] - top2[:, 1]) <= ulp
+        check(torch.equal(pred[~plain_tie], ppred[~plain_tie]),
+              f"exit_head pred differs from the plain chain outside its "
+              f"ties at {(b, d, v, dtype)}")
+        edge = (conf - th).abs() < HEAD_CONF_TOL
+        check(torch.equal(fire[~edge], pfire[~edge]),
+              f"exit_head fire differs from the plain chain at "
+              f"{(b, d, v, dtype)}")
+        check(torch.equal(fire, (conf > th).int()), "exit_head fire != conf > tau'")
+        check(not bool(fire[planted].any()), "exit_head fires at conf == tau'")
+        ms = time_ms(lambda: kern.exit_head_gate_cuda(h, scale, tab, th))
+        plain_ms = time_ms(lambda: ref.ref_exit_head_gate(h, scale, tab, th))
+        gemm_ms = time_ms(lambda: h @ tab.T)
+        bms, by, bytes_ms, fma_ms = head_bounds(b, d, v, h.element_size())
+        row = dict(phase="kernels", kernel="exit_head", shape=[b, d, v],
+                   dtype=str(dtype).removeprefix("torch."),
+                   conf_vs_exact=err,
+                   plain_conf_vs_exact=float(
+                       (pconf.double() - xconf).abs().max()),
+                   conf_rel_vs_plain=float(
+                       ((conf - pconf).abs() / pconf).max()),
+                   exact_near_ties=int(near.sum()),
+                   plain_ties=int(plain_tie.sum()),
+                   edge_rows=int(edge.sum()), planted=int(planted.sum()),
+                   fired=int(fire.sum()), ms=ms, plain_ms=plain_ms,
+                   gemm_floor_ms=gemm_ms, bound_ms=bms, bound_by=by,
+                   bytes_bound_ms=bytes_ms, fp32_fma_bound_ms=fma_ms)
+        emit(**row)
+        worst = max(worst, err)
+        if (b, d, v, dtype) == (64, 2048, 32000, torch.bfloat16):
+            main = row
+        del h, scale, tab
+    return worst, main
+
+
+#: (slots, pages per slot, page size, trailing dims, dtype): the serving
+#: decoder's K/V views at 16 and 64 slots, an fp32 one, and an odd page
+#: of 60 bytes (the byte-copy path)
+PAGED_CASES = [(16, 128, 8, (4, 64), torch.bfloat16),
+               (64, 128, 8, (4, 64), torch.bfloat16),
+               (16, 16, 8, (4, 64), torch.float32),
+               (5, 7, 3, (5,), torch.float32)]
+
+
+def paged_bound(s, p, page_bytes):
+    nbytes = 2 * s * p * page_bytes + s * p * 4
+    return bound(nbytes, 0)
+
+
+def check_paged_gather(ref, kern, gen):
+    main = None
+    for s, p, psz, trailing, dtype in PAGED_CASES:
+        n = s * p
+        # the decoder's store: n pages and a sink page, gathered as [:-1]
+        store = torch.randn(n + 1, psz, *trailing, device="cuda",
+                            generator=gen).to(dtype)
+        pages = store[:-1]
+        table = torch.randint(0, n, (s, p), device="cuda", generator=gen,
+                              dtype=torch.int32)
+        table[0, 0], table[0, 1], table[-1, -1] = n, n + 5, -3
+        got = kern.paged_gather_cuda(pages, table)
+        want = ref.ref_paged_gather(pages, table)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"paged_gather differs from the plain version at "
+              f"{(s, p, psz, trailing)}")
+        check(torch.equal(got[0, :psz], pages[n - 1])
+              and torch.equal(got[-1, -psz:], pages[0]),
+              "paged_gather does not clamp out-of-range page ids")
+        ids = table.reshape(-1).clamp(0, n - 1).long()
+        ms = time_ms(lambda: kern.paged_gather_cuda(pages, table))
+        plain_ms = time_ms(lambda: ref.ref_paged_gather(pages, table))
+        lib_ms = time_ms(lambda: pages.index_select(0, ids))
+        page_bytes = psz * math.prod(trailing) * pages.element_size()
+        bms, by = paged_bound(s, p, page_bytes)
+        row = dict(phase="kernels", kernel="paged_gather",
+                   shape=[n, psz, *trailing], table=[s, p],
+                   dtype=str(dtype).removeprefix("torch."),
+                   page_bytes=page_bytes, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bms, bound_by=by)
+        emit(**row)
+        if (s, p, dtype) == (64, 128, torch.bfloat16):
+            main = row
+    return main
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: the engine on the main path
 # ---------------------------------------------------------------------------
 
@@ -295,7 +525,8 @@ def drive_engine(cfg, name, data, offset):
     cal = eng.collect_calibration(data, n=512, batch=64)
     pol = eng.calibrate(cal)
     cal_s = time.perf_counter() - t0
-    expect = {"difficulty": 512 // 64, "exit_gate": 0}
+    expect = {"difficulty": 512 // 64, "exit_gate": 0, "exit_head": 0,
+              "paged_gather": 0}
     # tau at each exit's median of conf - beta_diff*alpha: about half the
     # rows reaching a gate leave there, so compaction really runs
     bd = float(pol.beta_diff)
@@ -341,7 +572,8 @@ def drive_engine(cfg, name, data, offset):
     torch.cuda.synchronize()
     counts = dispatch.launch_counts()
     check(counts == expect, f"{name}: launch counts {counts} != {expect}")
-    check(all(counts[k] > 0 for k in counts), f"{name}: a kernel never ran")
+    check(counts["exit_gate"] > 0 and counts["difficulty"] > 0,
+          f"{name}: a kernel never ran")
     check(int((exits > 0).sum()) >= 2, f"{name}: fewer than 2 exits taken")
 
     eng.update()
@@ -382,6 +614,290 @@ def check_against_cpu(cfg, params, eng, x):
             "max_conf_err": err}
 
 
+# ---------------------------------------------------------------------------
+# phases 6-7: LM decode on the main path
+# ---------------------------------------------------------------------------
+
+def lm_engine(cfg):
+    from repro_torch.core.routing import DartParams
+    from repro_torch.engine.lm import LMDecodeEngine
+    from repro_torch.models.transformer_lm import lm_init
+
+    params = lm_init(cfg, seed=0)                      # drawn on the card
+    e = cfg.n_exits - 1
+    eng = LMDecodeEngine(cfg, params, DartParams(
+        tau=torch.full((e,), 2.0), coef=torch.ones(e), beta_diff=LM_BETA))
+    check(eng.device.type == "cuda", "LM engine not on the card")
+    return eng
+
+
+def lm_calibrate(eng, rs, quantiles=(0.75, 0.5, 0.5)):
+    """tau per gate from the first decode step's conf of 16 prompts (the
+    probing step fires nowhere): the quantile of conf - beta_diff*alpha,
+    so every stage takes some rows."""
+    b, s0 = 16, 16
+    prompts = rs.randint(0, eng.cfg.vocab, (b, s0))
+    confs = {}
+
+    def probe(s, active, h, logits, conf, eff):
+        confs[s] = conf.float().cpu().numpy()
+
+    cache = eng.prefill(prompts[:, :-1], eng.init_cache(b, s0))
+    _, stages, _, alpha = eng.decode_step(
+        prompts[:, -1], cache, s0 - 1, np.full(b, 0.5, np.float32),
+        record=False, probe=probe)
+    check(np.all(stages == eng.n_exits - 1), "the probing step fired early")
+    tau = np.array([np.quantile(confs[s] - LM_BETA * alpha, q)
+                    for s, q in enumerate(quantiles)], np.float32)
+    eng.state = eng.state.with_policy(tau=tau)
+    return tau
+
+
+def lm_requests(rs, n, vocab, n_new=None):
+    """n one-row requests, prompts of 16 to 64 tokens; n_new fixed or
+    drawn from 16..48."""
+    return [(i, rs.randint(0, vocab, (1, int(rs.randint(16, 65)))),
+             n_new or int(rs.randint(16, 49))) for i in range(n)]
+
+
+def lm_drive(dec, reqs, admit_per_step=None):
+    """Admit FIFO whenever the pool has room (at most ``admit_per_step``
+    a step) and step until every request finished.  Returns (results,
+    decode steps, seconds in all, seconds of admission and prefill)."""
+    results, pending, steps, admit_s = {}, list(reqs), 0, 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while len(results) < len(reqs):
+        k = 0
+        t1 = time.perf_counter()
+        while pending and k != admit_per_step and dec.can_admit(
+                1, pending[0][1].shape[1], pending[0][2]):
+            tag, p, n = pending.pop(0)
+            dec.admit(p, n, tag=tag)
+            k += 1
+        if k:
+            torch.cuda.synchronize()
+            admit_s += time.perf_counter() - t1
+        check(dec.active_rows > 0, "LM decoder stalled")
+        for tag, toks, stgs in dec.step():
+            results[tag] = (toks[0], stgs[0])
+        steps += 1
+    torch.cuda.synchronize()
+    return results, steps, time.perf_counter() - t0, admit_s
+
+
+def lm_oracle(eng, reqs, view_len, kernel_head=False):
+    """Each request through the eager oracle (plain head) at the
+    decoder's view length, recording per (step, stage) what the flag
+    rule reads; with ``kernel_head`` also the kernel head's decision on
+    the oracle's own hidden rows."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer_lm import _unembed_table
+
+    table = _unembed_table(eng.params, eng.cfg)
+    out, diag = {}, {}
+    for tag, p, n in reqs:
+        d = diag[tag] = {}
+
+        def probe(t, s, active, h, logits, conf, eff, d=d):
+            top2 = logits.float().topk(2, dim=-1).values
+            rec = {"active": active.copy(), "conf": conf.float().cpu(),
+                   "eff": None if eff is None else eff.cpu(),
+                   "gap": (top2[:, 0] - top2[:, 1]).cpu(),
+                   "pred": logits.argmax(-1).cpu()}
+            if kernel_head:
+                name = eng.exit_names[s]
+                norm = eng.params["final_norm"] if name == "final" \
+                    else eng.params["exit_heads"][name]["norm"]
+                th = torch.full_like(conf, -1.0) if eff is None else eff
+                _, kp, kf = dispatch.exit_head_gate(
+                    h, norm["scale"], table, th.float().contiguous())
+                rec["kpred"], rec["kfire"] = kp.cpu(), kf.cpu()
+            d[(t, s)] = rec
+
+        toks, stgs = eng._generate_eager(p, n, max_len=view_len, probe=probe)
+        out[tag] = (toks[0], stgs[0])
+    return out, diag
+
+
+def lm_compare(results, oracle, diag):
+    """Rows equal to the oracle, rows whose first divergent step the
+    oracle flags, head-precision rows (unflagged, but the kernel head on
+    the oracle's hidden row decides otherwise than the oracle's head;
+    only with ``kernel_head`` diagnostics) and the rest, unflagged."""
+    c = {"rows": 0, "equal": 0, "flagged": 0, "head_precision": 0,
+         "unflagged": 0, "tokens": 0, "tokens_equal": 0}
+    unflagged = []
+    for tag, (gt, gs) in results.items():
+        wt, ws = oracle[tag]
+        same = (wt == gt) & (ws == gs)
+        c["rows"] += 1
+        c["tokens"] += len(wt)
+        c["tokens_equal"] += int(same.sum())
+        bad = np.nonzero(~same)[0]
+        if not len(bad):
+            c["equal"] += 1
+            continue
+        t = int(bad[0])
+        s = int(min(ws[t], gs[t]))
+        rec = diag[tag][(t, s)]
+        k = int(np.nonzero(rec["active"] == 0)[0][0])
+        conf = float(rec["conf"][k])
+        eff = None if rec["eff"] is None else float(rec["eff"][k])
+        gap = float(rec["gap"][k])
+        if gap < LM_GAP or (eff is not None and abs(conf - eff) < LM_EDGE):
+            c["flagged"] += 1
+        elif "kpred" in rec and (
+                int(rec["kpred"][k]) != int(rec["pred"][k])
+                or (eff is not None
+                    and bool(rec["kfire"][k]) != (conf > eff))):
+            c["head_precision"] += 1
+        else:
+            c["unflagged"] += 1
+            unflagged.append({"request": tag, "step": t, "stage": s,
+                              "gap": gap, "conf": conf, "tau": eff})
+    return c, unflagged
+
+
+def lm_profile(eng, reqs, n_slots, steps=8):
+    """Device busy share of a window of decode steps with a full pool,
+    and the kernels that take the device time (torch.profiler; kernels
+    of one stream do not overlap, so their summed time is busy time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dec = eng.continuous(n_slots=n_slots, page_size=8, max_len=1024)
+    for tag, p, n in reqs[:n_slots]:
+        dec.admit(p, n, tag=tag)
+    dec.step()
+    dec.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            dec.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    return {"steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
+            "device_ms_per_step": busy_us / 1e3 / steps,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "kernels_per_step": sum(e.count for e in kern) / steps,
+            "top_kernels_ms_per_step": [
+                [e.key[:70], e.self_device_time_total / 1e3 / steps]
+                for e in top]}
+
+
+def lm_launches(eng, steps):
+    """This run's launches of the LM kernels, checked exactly: one exit
+    head per stage and two gathers per layer in every decode step."""
+    from repro_torch.kernels import dispatch
+    counts = dispatch.launch_counts()
+    want = {"exit_gate": 0, "difficulty": 0,
+            "exit_head": eng.n_exits * steps,
+            "paged_gather": 2 * eng.cfg.n_layers * steps}
+    check(counts == want, f"LM launch counts {counts} != {want}")
+    return counts
+
+
+def lm_strict():
+    """Full TinyLlama width and depth in fp32: the continuous decoder
+    (kernels) against the eager oracle (plain head), no unflagged
+    divergence."""
+    from repro_torch.configs.tinyllama_1_1b import CONFIG
+    from repro_torch.kernels import dispatch
+
+    cfg = dataclasses.replace(CONFIG, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    eng = lm_engine(cfg)
+    rs = np.random.RandomState(1)
+    tau = lm_calibrate(eng, rs)
+    reqs = lm_requests(rs, 40, cfg.vocab, n_new=16)
+    dec = eng.continuous(n_slots=16, page_size=8, max_len=128)
+    dispatch.reset_launch_counts()
+    results, steps, secs, _ = lm_drive(dec, reqs, admit_per_step=4)
+    counts = lm_launches(eng, steps)
+    stages = np.stack([results[t][1] for t, _, _ in reqs])
+    hist = np.bincount(stages.ravel(), minlength=eng.n_exits)
+    check(bool((hist > 0).all()), f"LM strict: a stage took no token {hist}")
+    oracle, diag = lm_oracle(eng, reqs, dec.view_len)
+    cmp, unflagged = lm_compare(results, oracle, diag)
+    check(not unflagged, f"LM strict: unflagged divergence {unflagged[:3]}")
+    emit(phase="lm-strict", model=cfg.name, dtype="float32",
+         layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+         exits=list(cfg.exit_layers), tau=tau.tolist(), beta_diff=LM_BETA,
+         n_slots=dec.n_slots, max_len=dec.max_len, requests=len(reqs),
+         decode_steps=steps, seconds=secs, launches=counts,
+         exit_counts=hist.tolist(), exempt_rows=cmp["flagged"], **cmp)
+    del eng, dec
+    torch.cuda.empty_cache()
+
+
+def lm_serving():
+    """The published bf16 configuration at 16 and 64 slots: throughput,
+    exits, launches, memory; at 16 slots the agreement with the bf16
+    eager oracle, explained."""
+    from repro_torch.configs.tinyllama_1_1b import CONFIG
+    from repro_torch.convert import leaves
+    from repro_torch.kernels import dispatch
+
+    eng = lm_engine(CONFIG)
+    n_params = sum(t.numel() for t in leaves(eng.params))
+    rs = np.random.RandomState(2)
+    tau = lm_calibrate(eng, rs)
+    main = None
+    for n_slots in (16, 64):
+        reqs = lm_requests(np.random.RandomState(100 + n_slots),
+                           4 * n_slots, CONFIG.vocab)
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(1 + SERVE_RUNS):             # the first warms up
+            dec = eng.continuous(n_slots=n_slots, page_size=8, max_len=1024)
+            dispatch.reset_launch_counts()
+            results, steps, secs, admit_s = lm_drive(dec, reqs)
+            counts = lm_launches(eng, steps)
+            runs.append((results, steps, secs, counts, admit_s))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        results, steps, _, counts, _ = runs[-1]
+        tokens = sum(n for _, _, n in reqs)
+        secs = [r[2] for r in runs[1:]]
+        decode_ms = [1e3 * (r[2] - r[4]) / r[1] for r in runs[1:]]
+        prefill_ms = [1e3 * r[4] / len(reqs) for r in runs[1:]]
+        stages = np.concatenate([results[t][1] for t, _, _ in reqs])
+        repeatable = all(np.array_equal(results[t][0], r[0][t][0])
+                         and np.array_equal(results[t][1], r[0][t][1])
+                         for r in runs for t, _, _ in reqs)
+        row = dict(phase="lm-serving", model=CONFIG.name, dtype="bfloat16",
+                   params=n_params, tau=tau.tolist(), beta_diff=LM_BETA,
+                   n_slots=n_slots, max_len=dec.max_len,
+                   view_len=dec.view_len, page_size=dec.page_size,
+                   requests=len(reqs), tokens=tokens, decode_steps=steps,
+                   seconds=secs, tokens_per_s=tokens / float(np.median(secs)),
+                   decode_step_ms=float(np.median(decode_ms)),
+                   admit_prefill_ms_per_request=float(np.median(prefill_ms)),
+                   exit_counts=np.bincount(
+                       stages, minlength=eng.n_exits).tolist(),
+                   mean_layer_fraction=float(eng.cum_costs[stages].mean()),
+                   launches=counts, peak_memory_gb=peak_gb,
+                   runs_repeat=repeatable)
+        row["profile"] = lm_profile(eng, reqs, n_slots)
+        if n_slots == 16:
+            oracle, diag = lm_oracle(eng, reqs, dec.view_len,
+                                     kernel_head=True)
+            cmp, unflagged = lm_compare(results, oracle, diag)
+            row["oracle_agreement"] = cmp
+            row["oracle_unflagged"] = unflagged[:5]
+        emit(**row)
+        main = row
+        del dec, runs
+        torch.cuda.empty_cache()
+    return main
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -401,6 +917,10 @@ def main() -> int:
     from repro_torch.kernels.difficulty import ref as dref
     from repro_torch.kernels.exit_gate import kernel as gkern
     from repro_torch.kernels.exit_gate import ref as gref
+    from repro_torch.kernels.exit_head import kernel as hkern
+    from repro_torch.kernels.exit_head import ref as href
+    from repro_torch.kernels.paged_gather import kernel as pkern
+    from repro_torch.kernels.paged_gather import ref as pref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -420,9 +940,13 @@ def main() -> int:
     gate_err = check_exit_gate(gref, gkern, gen)
     softmax_err = check_softmax_confidence(gen)
     diff_err = check_difficulty(dref, dkern, gen, DEFAULT)
+    head_err, head_main = check_exit_head(href, hkern, gen)
+    paged_main = check_paged_gather(pref, pkern, gen)
 
     vgg = drive_engine(VGG16_CIFAR, "vgg16-cifar", CIFAR, offset=2000)
     drive_engine(ALEXNET_CIFAR, "alexnet-cifar", CIFAR, offset=6000)
+    lm_strict()
+    lm = lm_serving()
 
     # main-path shapes: one 1024-row bucket, 10 classes / 32x32x3 images
     lg, th = gate_inputs(1024, 10, gen)
@@ -441,7 +965,9 @@ def main() -> int:
                             softmax_err),
          "ms": time_ms(lambda: gkern.exit_gate_cuda(lg, th)),
          "plain_ms": time_ms(lambda: gref.ref_exit_gate(lg, th)),
-         "bound_ms": gate_b, "bound_by": gate_by, "library_ms": None,
+         "bound_ms": gate_b, "bound_by": gate_by,
+         # (conf, pred) in one call; entropy and fire are not in it
+         "library_ms": time_ms(lambda: torch.softmax(lg.float(), -1).max(-1)),
          "shape": [1024, 10]},
         {"name": "difficulty", "route": "cuda",
          "source": "src/repro_torch/csrc/difficulty.cu",
@@ -451,6 +977,27 @@ def main() -> int:
          "plain_ms": time_ms(lambda: dref.ref_components(img, **kw)),
          "bound_ms": diff_b, "bound_by": diff_by, "library_ms": None,
          "shape": [1024, 32, 32, 3]},
+        {"name": "exit_head", "route": "cuda",
+         "source": "src/repro_torch/csrc/exit_head.cu",
+         "replaces": "src/repro/kernels/exit_head/exit_head_kernel.py:98",
+         "launches": lm["launches"]["exit_head"], "max_abs_err": head_err,
+         "ms": head_main["ms"], "plain_ms": head_main["plain_ms"],
+         "bound_ms": head_main["bound_ms"],
+         "bound_by": head_main["bound_by"], "library_ms": None,
+         "gemm_floor_ms": head_main["gemm_floor_ms"],
+         "fp32_fma_bound_ms": head_main["fp32_fma_bound_ms"],
+         "shape": head_main["shape"], "dtype": head_main["dtype"]},
+        {"name": "paged_gather", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_gather.cu",
+         "replaces":
+             "src/repro/kernels/paged_gather/paged_gather_kernel.py:50",
+         "launches": lm["launches"]["paged_gather"], "max_abs_err": 0.0,
+         "ms": paged_main["ms"], "plain_ms": paged_main["plain_ms"],
+         "bound_ms": paged_main["bound_ms"],
+         "bound_by": paged_main["bound_by"],
+         "library_ms": paged_main["library_ms"],
+         "shape": paged_main["shape"], "table": paged_main["table"],
+         "dtype": paged_main["dtype"]},
     ]}
     for k in summary["kernels"]:
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms",

@@ -1,13 +1,17 @@
 """Convert the JAX package's parameters into the port's.
 
-``from_jax_params`` takes the JAX param tree as plain numpy arrays —
-``Param`` leaves already unwrapped (``parallel/sharding.py::unzip``) and
-every leaf passed through ``np.asarray`` — and returns the port's tree on
-a device.  Dicts and lists keep their structure; convolution weights go
+``from_jax_params`` takes the JAX param tree with array leaves (numpy,
+or anything ``np.asarray`` reads) — ``Param`` leaves of
+``parallel/sharding.py`` are unwrapped here, recognised by their
+``value`` and ``axes`` attributes — and returns the port's tree on a
+device.  Dicts and lists keep their structure; convolution weights go
 from HWIO to OIHW.  Linear weights keep their (in, out) layout, and the
 models flatten NHWC before a fully connected layer, so no FC row needs
-permuting.  The result is checked against the port's own init for the
-same config, leaf by leaf, so a tree of the wrong architecture raises.
+permuting.  The LM tree (``models/transformer_lm.py``: embed, layers'
+norms, attention and SwiGLU weights, final and exit-head norms, the
+untied unembedding) keeps the JAX einsum layouts and needs no transpose.
+The result is checked against the port's own init for the same config,
+leaf by leaf, so a tree of the wrong architecture raises.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch
 
 from repro_torch import device as DEV
 from repro_torch.models import get_family
+from repro_torch.models.transformer_lm import LMConfig, lm_init
 
 
 def tree_map(fn, tree):
@@ -35,6 +40,8 @@ def leaves(tree):
 
 
 def _to_port(leaf, device):
+    if hasattr(leaf, "value") and hasattr(leaf, "axes"):     # Param
+        leaf = leaf.value
     a = np.asarray(leaf)
     if a.ndim == 4:                                   # conv HWIO -> OIHW
         a = a.transpose(3, 2, 0, 1)
@@ -63,7 +70,10 @@ def from_jax_params(values_tree, cfg, device=None):
     ``device`` (``None`` = the CUDA card)."""
     dev = DEV.resolve(device)
     params = tree_map(lambda a: _to_port(a, dev), values_tree)
-    _check(params, get_family(cfg).init(cfg, device="meta"))
+    if isinstance(cfg, LMConfig):
+        _check(params, lm_init(cfg, device="meta"))
+    else:
+        _check(params, get_family(cfg).init(cfg, device="meta"))
     for leaf in leaves(params):
         if leaf.dtype != cfg.param_dtype:
             raise TypeError(f"param dtype {leaf.dtype} != {cfg.param_dtype}")

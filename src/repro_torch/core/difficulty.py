@@ -1,4 +1,5 @@
-"""DART difficulty estimation for images — paper section II.A (Eqs. 1-8).
+"""DART difficulty estimation — paper section II.A (Eqs. 1-8) for images,
+and its token-domain analogue for LM decode.
 
 Three complementary per-input metrics, fused with weights (w1, w2, w3):
 
@@ -90,6 +91,47 @@ def image_difficulty(images, cfg: DifficultyConfig = DEFAULT):
     return fuse(edge_density(images, cfg.tau_edge),
                 pixel_variance(images, cfg.var_scale),
                 gradient_complexity(images, cfg.grad_scale), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Token domain (LM) — Eq. 17 transposed to embedding space
+# ---------------------------------------------------------------------------
+# ``jnp.var`` is the biased (population) variance, so every variance here
+# takes ``correction=0``; torch's default (unbiased) would shift alpha in
+# every decode step.
+
+def token_difficulty(embeddings, cfg: DifficultyConfig = DEFAULT,
+                     edge_tau: float = 1.0):
+    """embeddings: (B, S, D) input-token embeddings.  Returns (B,) in [0,1].
+
+    * edge analogue    — fraction of token transitions with RMS step > tau
+    * variance analogue — feature variance (squashed)
+    * gradient analogue — RMS second difference (squashed)
+    """
+    x = embeddings.float()
+    if x.shape[1] < 3:
+        # decode steps: fall back to feature variance only
+        var = torch.var(x, dim=(1, 2), correction=0)
+        return torch.clamp(1.0 - torch.exp(-var / cfg.var_scale), 0.0, 1.0)
+    d1 = x[:, 1:] - x[:, :-1]
+    step = torch.sqrt(d1.square().mean(dim=-1))              # (B, S-1) RMS
+    a_edge = (step > edge_tau).float().mean(dim=-1)
+    var = torch.var(x, dim=(1, 2), correction=0)
+    a_var = 1.0 - torch.exp(-var / (10 * cfg.var_scale))
+    d2 = x[:, 2:] - 2 * x[:, 1:-1] + x[:, :-2]
+    curv = torch.sqrt(d2.square().mean(dim=-1)).mean(dim=-1)
+    a_grad = 1.0 - torch.exp(-curv / (10 * cfg.grad_scale))
+    return fuse(a_edge, a_var, a_grad, cfg)
+
+
+def token_difficulty_ema(prev_alpha, new_embedding, cfg=DEFAULT,
+                         decay: float = 0.9):
+    """Decode-time difficulty: EMA over per-token feature stats.
+    prev_alpha: (B,); new_embedding: (B, 1, D)."""
+    var = torch.var(new_embedding.float(), dim=(1, 2), correction=0)
+    inst = torch.clamp(1.0 - torch.exp(-var / (10 * cfg.var_scale)), 0.0,
+                       1.0)
+    return decay * prev_alpha + (1.0 - decay) * inst
 
 
 #: Default class boundaries on Eq. 8 alpha — easy (0, 0.35], medium

@@ -10,6 +10,10 @@ sees at most #buckets distinct batch shapes:
   pads the gate thresholds with 2.0, which no confidence exceeds, so
   padded lanes never fire.
 * ``gather(arr, idx)`` — compact the survivors in one take.
+
+The continuous LM decoder's host-side allocators (``OutOfCapacity``,
+``PageAllocator``, ``SlotPool``) are copied from the JAX package with
+their invariants.
 """
 from __future__ import annotations
 
@@ -75,3 +79,118 @@ class BatchCompactor:
         """Rows ``idx`` of ``arr``, compacted."""
         return arr.index_select(
             0, torch.as_tensor(idx, dtype=torch.long, device=arr.device))
+
+
+# ---------------------------------------------------------------------------
+# Slot-pool continuous batching: host-side resource accounting
+# ---------------------------------------------------------------------------
+#
+# Both allocators partition their id space into ``n_ranges`` contiguous
+# ranges (one per mesh replica in the JAX package).  The continuous
+# decoder keeps the invariant "slot s draws KV pages only from
+# range(s)", so a replica's page-table entries resolve into its own page
+# shard.  The port is mesh-less so far and uses one range.
+
+
+class OutOfCapacity(RuntimeError):
+    """Raised on alloc from an exhausted slot/page range (callers are
+    expected to gate on ``available`` / ``can_admit`` first)."""
+
+
+class PageAllocator:
+    """Free-list allocator over ``n_pages`` fixed-size KV pages.
+
+    Double-alloc and double-free are programming errors and raise —
+    the continuous-batching property harness leans on that.
+    """
+
+    def __init__(self, n_pages: int, n_ranges: int = 1):
+        if n_pages <= 0 or n_ranges <= 0 or n_pages % n_ranges:
+            raise ValueError(f"n_pages={n_pages} not divisible into "
+                             f"{n_ranges} ranges")
+        self.n_pages = n_pages
+        self.n_ranges = n_ranges
+        self.per_range = n_pages // n_ranges
+        self._free = [list(range(r * self.per_range,
+                                 (r + 1) * self.per_range))
+                      for r in range(n_ranges)]
+        self._held: set[int] = set()
+
+    def available(self, rng: int = 0) -> int:
+        return len(self._free[rng])
+
+    @property
+    def in_use(self) -> int:
+        return len(self._held)
+
+    def alloc(self, n: int, rng: int = 0) -> list[int]:
+        free = self._free[rng]
+        if n > len(free):
+            raise OutOfCapacity(
+                f"need {n} pages, range {rng} has {len(free)}")
+        pages, self._free[rng] = free[:n], free[n:]
+        for p in pages:
+            if p in self._held:
+                raise AssertionError(f"page {p} double-allocated")
+            self._held.add(p)
+        return pages
+
+    def free(self, pages) -> None:
+        for p in pages:
+            if p not in self._held:
+                raise AssertionError(f"page {p} freed but not held")
+            self._held.discard(p)
+            self._free[p // self.per_range].append(p)
+
+    def occupancy(self) -> dict:
+        """Host-side occupancy snapshot (the obs gauge source)."""
+        return {"total": self.n_pages, "in_use": self.in_use,
+                "free_per_range": [len(f) for f in self._free]}
+
+
+class SlotPool:
+    """Free-list over ``n_slots`` decode slots, range-partitioned like
+    :class:`PageAllocator`."""
+
+    def __init__(self, n_slots: int, n_ranges: int = 1):
+        if n_slots <= 0 or n_ranges <= 0 or n_slots % n_ranges:
+            raise ValueError(f"n_slots={n_slots} not divisible into "
+                             f"{n_ranges} ranges")
+        self.n_slots = n_slots
+        self.n_ranges = n_ranges
+        self.per_range = n_slots // n_ranges
+        self._free = [list(range(r * self.per_range,
+                                 (r + 1) * self.per_range))
+                      for r in range(n_ranges)]
+        self._held: set[int] = set()
+
+    def available(self, rng: int = 0) -> int:
+        return len(self._free[rng])
+
+    @property
+    def in_use(self) -> int:
+        return len(self._held)
+
+    def range_of(self, slot: int) -> int:
+        return slot // self.per_range
+
+    def acquire(self, rng: int = 0) -> int:
+        free = self._free[rng]
+        if not free:
+            raise OutOfCapacity(f"slot range {rng} exhausted")
+        slot = free.pop(0)
+        if slot in self._held:
+            raise AssertionError(f"slot {slot} double-allocated")
+        self._held.add(slot)
+        return slot
+
+    def release(self, slot: int) -> None:
+        if slot not in self._held:
+            raise AssertionError(f"slot {slot} released but not held")
+        self._held.discard(slot)
+        self._free[self.range_of(slot)].append(slot)
+
+    def occupancy(self) -> dict:
+        """Host-side occupancy snapshot (the obs gauge source)."""
+        return {"total": self.n_slots, "in_use": self.in_use,
+                "free_per_range": [len(f) for f in self._free]}

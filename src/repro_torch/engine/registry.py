@@ -6,8 +6,9 @@
   card, the plain chain on the CPU).
 * ``OPTIMIZERS``  — calibration data -> ``PolicyResult`` (section II.B).
 
-This slice carries the strategies of the classifier path; any other
-name raises the same ``KeyError`` as an unknown one.
+This port carries the strategies of the classifier path and the LM
+decode path (``"lm-token"``); any other name raises the same
+``KeyError`` as an unknown one.
 """
 from __future__ import annotations
 
@@ -65,6 +66,12 @@ def _conf_entropy(logits, **kw):
     """exp(-H(p)) — entropy mapped onto (0, 1], larger = more confident
     (BranchyNet's criterion under the common gate protocol)."""
     return torch.exp(-R.entropy_from_logits(logits))
+
+
+@_register(CONFIDENCE, "lm-token")
+def _conf_lm_token(logits, **kw):
+    """Next-token max softmax probability (CALM-style LM criterion)."""
+    return R.confidence_from_logits(logits)
 
 
 @_register(DIFFICULTY, "image")

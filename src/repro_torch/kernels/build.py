@@ -29,12 +29,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 
 #: C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "exit_gate_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "difficulty_launch": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                           _P],
+    "exit_head_slices": [_I, _I],
+    "exit_head_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _F, _P],
+    "paged_gather_launch": [_P, _P, _P, _I, _I, _L, _P],
 }
 
 

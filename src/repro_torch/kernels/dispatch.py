@@ -9,6 +9,8 @@ no fallback to the plain version on a card.  Any other device raises.
     softmax_confidence(logits)           (conf, pred) over (..., V)
     difficulty_components(images, cfg)   (B, 4) Eq. 1-8 statistics
     image_difficulty(images, cfg)        (B,) fused Eq. 8 alpha
+    exit_head_gate(h, scale, table, th)  (conf, pred, fire) of an LM exit
+    paged_gather(pages, page_table)      dense (S, P*psz, ...) KV view
 
 ``launch_counts()`` reports how many times each kernel was launched
 since ``reset_launch_counts()``; the plain versions are not counted.
@@ -21,8 +23,13 @@ from repro_torch.kernels.difficulty import kernel as _difficulty
 from repro_torch.kernels.difficulty import ref as _difficulty_ref
 from repro_torch.kernels.exit_gate import kernel as _gate
 from repro_torch.kernels.exit_gate import ref as _gate_ref
+from repro_torch.kernels.exit_head import kernel as _head
+from repro_torch.kernels.exit_head import ref as _head_ref
+from repro_torch.kernels.paged_gather import kernel as _paged
+from repro_torch.kernels.paged_gather import ref as _paged_ref
 
-_WRAPPERS = {"exit_gate": _gate, "difficulty": _difficulty}
+_WRAPPERS = {"exit_gate": _gate, "difficulty": _difficulty,
+             "exit_head": _head, "paged_gather": _paged}
 
 
 def launch_counts() -> dict:
@@ -81,3 +88,30 @@ def difficulty_components(images: torch.Tensor, cfg=None) -> torch.Tensor:
 def image_difficulty(images: torch.Tensor, cfg=None) -> torch.Tensor:
     """Fused Eq. 8 alpha, (B,)."""
     return difficulty_components(images, cfg)[:, 3]
+
+
+def exit_head_gate(h: torch.Tensor, scale: torch.Tensor,
+                   table: torch.Tensor, thresholds: torch.Tensor, *,
+                   eps: float = 1e-6):
+    """Fused decode-time exit head for the ``lm-token`` functional:
+    rmsnorm -> unembedding -> max-softmax confidence -> Eq. 19 gate.
+    h (B, D) hidden rows, scale (D,) rmsnorm weight, table (V, D)
+    unembedding, thresholds (B,) float32.  Returns (conf (B,) float32,
+    pred (B,) int32, fire (B,) int32); on a card the (B, V) logits are
+    never written to device memory."""
+    if _on_cpu(h, "exit_head_gate"):
+        return _head_ref.ref_exit_head_gate(h, scale, table, thresholds,
+                                            eps=eps)
+    return _head.exit_head_gate_cuda(h.contiguous(), scale, table,
+                                     thresholds, eps=eps)
+
+
+def paged_gather(pages: torch.Tensor, page_table: torch.Tensor):
+    """Dense per-slot view of a paged KV store.  pages (N, psz, ...),
+    page_table (S, P) page ids, clamped to [0, N-1].  Returns
+    (S, P*psz, ...), bit-identical to a contiguous cache holding the same
+    rows."""
+    if _on_cpu(pages, "paged_gather"):
+        return _paged_ref.ref_paged_gather(pages, page_table)
+    return _paged.paged_gather_cuda(
+        pages, page_table.to(torch.int32).contiguous())

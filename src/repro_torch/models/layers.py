@@ -1,4 +1,5 @@
-"""Building blocks of the testbed CNNs (plain functions on tensors).
+"""Building blocks of the testbed CNNs and of the LLaMA-family LMs
+(plain functions on tensors).
 
 Parameters are dicts of tensors.  Convolution weights are OIHW and the
 activations of these layers are NCHW (torch's own layout); the models'
@@ -11,13 +12,24 @@ sizes up (28 -> 14 -> 7 -> 4), where torch's defaults would floor.
 Init draws from an explicit ``torch.Generator``: He-normal convolutions
 and truncated-normal (std 0.02, cut at 2 std) linears, the same
 distributions as the JAX init, not the same numbers.
+
+The LM subset keeps the JAX package's layouts and roundings: rmsnorm in
+fp32 with eps 1e-6 and a cast back; the half-split ("llama") rope with
+cos/sin in fp32; attention scores in the input dtype, then fp32 with a
+-inf mask and an fp32 softmax cast back before P.V; einsum weight
+layouts wq/wk/wv (D, H, Dh) and wo (H, Dh, D).  The KV-cache writes
+update the given cache tensors in place (JAX returns new arrays; the
+callers here own the tensors they pass).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import dispatch as KD
 
 
 def trunc_normal(shape, generator, *, std=0.02, device,
@@ -42,7 +54,10 @@ def linear_init(generator, in_dim, out_dim, *, device,
 
 
 def linear(p, x):
-    return x @ p["w"] + p["b"]
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
 
 
 def conv_init(generator, kh, kw, cin, cout, *, device,
@@ -87,3 +102,164 @@ def max_pool(x, window, stride):
 def global_avg_pool(x):
     """(B, C, H, W) -> (B, C)."""
     return x.mean(dim=(2, 3))
+
+
+# ---------------------------------------------------------------------------
+# LM blocks (repro/models/layers.py: rmsnorm, swiglu, rope, attention,
+# decode and paged decode)
+# ---------------------------------------------------------------------------
+
+def rmsnorm(p, x, eps=1e-6):
+    dtype = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    return (x * p["scale"].float()).to(dtype)
+
+
+def embed(p, ids):
+    return p["table"][ids]
+
+
+def swiglu(p, x):
+    return linear(p["down"], F.silu(linear(p["gate"], x)) * linear(p["up"], x))
+
+
+@functools.lru_cache(maxsize=32)
+def _rope_table(head_dim, max_seq, theta, device):
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=device) / head_dim))
+    t = torch.arange(max_seq, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def rope_freqs(head_dim, max_seq, theta=10000.0, *, device):
+    """(cos, sin), each (max_seq, head_dim / 2) float32 (cached per
+    geometry and device; callers never write into them)."""
+    return _rope_table(int(head_dim), int(max_seq), float(theta),
+                       torch.device(device))
+
+
+def apply_rope(x, cos, sin, positions=None):
+    """x: (B, S, H, Dh); cos/sin: (S_max, Dh/2); positions: (B, S) or
+    None.  Half-split: the first and second halves of Dh form the pairs."""
+    if positions is None:
+        cos_p = cos[: x.shape[1]][None, :, None, :]
+        sin_p = sin[: x.shape[1]][None, :, None, :]
+    else:
+        cos_p = cos[positions][:, :, None, :]
+        sin_p = sin[positions][:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos_p - x2 * sin_p, x2 * cos_p + x1 * sin_p],
+                    dim=-1)
+    return out.to(x.dtype)
+
+
+def _repeat_kv(k, n_rep):
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def dense_attention(q, k, v, *, causal=False, kv_len=None, scale=None):
+    """Materialised-scores attention.  q: (B, Sq, H, Dh); k/v: (B, Skv,
+    Hkv, Dh); ``kv_len``: (B,) valid KV lengths (decode against a padded
+    cache).  Returns (B, Sq, H, Dh)."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    k = _repeat_kv(k, h // hkv)
+    v = _repeat_kv(v, h // hkv)
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    skv = k.shape[1]
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        ki = torch.arange(skv, device=q.device)[None, :]
+        scores = scores.masked_fill(ki > qi, -math.inf)
+    if kv_len is not None:
+        ki = torch.arange(skv, device=q.device)
+        scores = scores.masked_fill(
+            ki[None, None, None, :] >= kv_len[:, None, None, None],
+            -math.inf)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, *, scale=None):
+    """Single-token decode attention against a padded KV cache.
+    q: (B, 1, H, Dh); caches: (B, S_max, Hkv, Dh); kv_len: (B,)."""
+    return dense_attention(q, k_cache, v_cache, kv_len=kv_len, scale=scale)
+
+
+def gqa_qkv(p, x, cos, sin, positions=None):
+    """Q, K, V projections (B, S, H or Hkv, Dh), rope on Q and K."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    return (apply_rope(q, cos, sin, positions),
+            apply_rope(k, cos, sin, positions), v)
+
+
+def gqa_out(p, attn):
+    return torch.einsum("bshk,hkd->bsd", attn, p["wo"])
+
+
+def gqa_apply(p, x, cos, sin, *, causal=True):
+    q, k, v = gqa_qkv(p, x, cos, sin)
+    return gqa_out(p, dense_attention(q, k, v, causal=causal))
+
+
+def gqa_decode(p, x, cos, sin, cache, cache_index: int):
+    """One-token decode.  x: (B, 1, D); cache {"k", "v"}: (B, S_max, Hkv,
+    Dh), written in place at ``cache_index`` (the same for every row).
+    Returns (out (B, 1, D), cache)."""
+    positions = torch.full((x.shape[0], 1), cache_index, dtype=torch.long,
+                           device=x.device)
+    q, k, v = gqa_qkv(p, x, cos, sin, positions)
+    cache["k"][:, cache_index] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, cache_index] = v[:, 0].to(cache["v"].dtype)
+    kv_len = torch.full((x.shape[0],), cache_index + 1, dtype=torch.long,
+                        device=x.device)
+    o = decode_attention(q, cache["k"], cache["v"], kv_len)
+    return gqa_out(p, o), cache
+
+
+def paged_write(pages, rows, page_idx, offset):
+    """Write one row per slot into ``pages[page_idx[i], offset[i]]``, in
+    place.
+
+    pages: (N + 1, psz, ...) — N pages and, last, a sink page that no
+    page table references; rows: (S, ...); page_idx/offset: (S,) int.
+    As in the JAX package's ``mode="drop"`` scatter, a negative page_idx
+    counts from the end (-1 is page N-1) and rows whose page_idx lies
+    outside [-N, N) are dropped from ``pages[:N]``: they land in the
+    sink.  (An out-of-range ``index_put_`` raises on the CPU and is a
+    device-side assert on CUDA; selecting the valid rows with a boolean
+    mask would sync the host once per layer.)
+    """
+    n = pages.shape[0] - 1
+    idx = torch.where(page_idx < 0, page_idx + n, page_idx)
+    ok = (idx >= 0) & (idx < n)
+    pages[torch.where(ok, idx, n).long(), offset.long()] = \
+        rows.to(pages.dtype)
+    return pages
+
+
+def gqa_decode_paged(p, x, cos, sin, pages, page_table, page_idx, offset,
+                     positions):
+    """One-token GQA decode against a paged KV cache.
+
+    x: (S, 1, D); pages {"k", "v"}: (N + 1, psz, Hkv, Dh) with the sink
+    page last (see :func:`paged_write`); page_table: (S, P) of ids in
+    [0, N); page_idx/offset/positions: (S,) — per-slot write target and
+    current position.  Returns (out (S, 1, D), pages), written in place.
+    """
+    q, k, v = gqa_qkv(p, x, cos, sin, positions[:, None].long())
+    paged_write(pages["k"], k[:, 0], page_idx, offset)
+    paged_write(pages["v"], v[:, 0], page_idx, offset)
+    k_view = KD.paged_gather(pages["k"][:-1], page_table)
+    v_view = KD.paged_gather(pages["v"][:-1], page_table)
+    o = decode_attention(q, k_view, v_view, positions.long() + 1)
+    return gqa_out(p, o), pages

@@ -1,7 +1,8 @@
 """The port's kernel modules against the JAX package: the plain torch
-exit gate and difficulty chain against the JAX refs and the Pallas
-kernels in interpret mode, the device-keyed dispatch, and the rule that
-the port imports neither ``jax`` nor ``repro``."""
+exit gate, difficulty chain, LM exit head and paged gather against the
+JAX refs and the Pallas kernels in interpret mode, the device-keyed
+dispatch, and the rule that the port imports neither ``jax`` nor
+``repro``."""
 import ast
 import pathlib
 
@@ -14,14 +15,23 @@ import torch
 from repro.kernels.difficulty.difficulty_kernel import difficulty_pallas
 from repro.kernels.difficulty.ref import ref_components as jax_components
 from repro.kernels.exit_gate.exit_gate_kernel import exit_gate_pallas
+from repro.kernels.exit_head.exit_head_kernel import exit_head_gate_pallas
+from repro.kernels.paged_gather.paged_gather_kernel import \
+    paged_gather_pallas
 from repro.kernels.difficulty import ref as jax_difficulty_ref
 from repro.kernels.exit_gate import ref as jax_gate_ref
+from repro.kernels.exit_head import ref as jax_head_ref
+from repro.kernels.paged_gather import ref as jax_paged_ref
 from repro_torch.core.difficulty import DEFAULT
 from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.difficulty import kernel as dkernel
 from repro_torch.kernels.difficulty.ref import ref_components
 from repro_torch.kernels.exit_gate import kernel as gkernel
 from repro_torch.kernels.exit_gate.ref import ref_exit_gate
+from repro_torch.kernels.exit_head import kernel as hkernel
+from repro_torch.kernels.exit_head.ref import ref_exit_head_gate
+from repro_torch.kernels.paged_gather import kernel as pkernel
+from repro_torch.kernels.paged_gather.ref import ref_paged_gather
 
 # tiny tensors: one thread is faster than torch's pool, and leaves the
 # cores to the JAX side and to other test workers
@@ -32,6 +42,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # one compiled program per shape instead of one per op
 jax_exit_gate = jax.jit(jax_gate_ref.ref_exit_gate)
 jax_components = jax.jit(jax_difficulty_ref.ref_components)
+jax_exit_head = jax.jit(jax_head_ref.ref_exit_head_gate)
 
 # conf and entropy: fp32 sums over V taken in another order -> 1e-6.
 # Entropy grows to log V (8.3 at V = 4099, where one ulp is 1e-6), so it
@@ -138,6 +149,132 @@ def test_difficulty_plain_matches_pallas_interpret(h, w, c):
                       h, w)
 
 
+def _head_inputs(b, d, v, seed):
+    """(h, scale, table, thresholds, planted) with exact logit ties in
+    even rows (two table rows equal to h's direction) and tau' equal to
+    the port's own conf in rows i % 3 == 1."""
+    rs = np.random.RandomState(seed)
+    h = (rs.randn(b, d) * 2).astype(np.float32)
+    scale = (1.0 + 0.1 * rs.randn(d)).astype(np.float32)
+    tab = rs.randn(v, d).astype(np.float32)
+    for r in range(0, b, 2):
+        i, j = sorted(rs.choice(v, 2, replace=False))
+        tab[i] = tab[j] = h[r] * scale * 2.0 / np.abs(h[r]).max()
+    th = rs.uniform(0, 1, b).astype(np.float32)
+    conf = ref_exit_head_gate(*map(torch.from_numpy, (h, scale, tab, th)))[0]
+    planted = np.arange(b) % 3 == 1
+    th[planted] = conf.numpy()[planted]
+    return h, scale, tab, th, planted
+
+
+# LM exit head: the logits of these inputs reach ~30 in magnitude, and
+# fp32 dot products over D taken in another order move them by ~1e-6
+# relative, so conf (and the tau' edge) gets 1e-5
+HEAD_ATOL = 1e-5
+
+
+def _check_head(port, want, th, planted):
+    conf = np.asarray(want[0])
+    np.testing.assert_allclose(port[0].numpy(), conf, atol=HEAD_ATOL,
+                               rtol=0)
+    np.testing.assert_array_equal(port[1].numpy(), np.asarray(want[1]))
+    edge = np.abs(conf - th) < HEAD_ATOL
+    assert int(edge.sum()) >= int(planted.sum())
+    np.testing.assert_array_equal(port[2].numpy()[~edge],
+                                  np.asarray(want[2])[~edge])
+    assert not port[2].numpy()[planted].any()   # strict compare
+    return int(edge.sum())
+
+
+HEAD_SHAPES = [(1, 16, 32, 16), (7, 72, 1003, 59), (16, 64, 256, 64)]
+
+
+@pytest.mark.parametrize("b,d,v,block_v", HEAD_SHAPES)
+def test_exit_head_plain_matches_jax_ref(b, d, v, block_v):
+    h, scale, tab, th, planted = _head_inputs(b, d, v, seed=b * 31 + v)
+    port = ref_exit_head_gate(*map(torch.from_numpy, (h, scale, tab, th)))
+    _check_head(port, jax_exit_head(*map(jnp.asarray, (h, scale, tab, th))),
+                th, planted)
+    for r in range(0, b, 2):                      # ties go to lowest index
+        logits = (h[r] / np.sqrt(np.mean(h[r] ** 2) + 1e-6) * scale) @ tab.T
+        assert int(port[1][r]) == int(np.argmax(logits))
+
+
+@pytest.mark.parametrize("b,d,v,block_v", HEAD_SHAPES)
+def test_exit_head_plain_matches_pallas_interpret(b, d, v, block_v):
+    assert block_v < v
+    h, scale, tab, th, planted = _head_inputs(b, d, v, seed=b * 37 + v)
+    port = ref_exit_head_gate(*map(torch.from_numpy, (h, scale, tab, th)))
+    got = exit_head_gate_pallas(*map(jnp.asarray, (h, scale, tab, th)),
+                                block_v=block_v, interpret=True)
+    _check_head(port, got, th, planted)
+
+
+@pytest.mark.parametrize("backend", ["port", "pallas"])
+def test_exit_head_tie_and_threshold_edge(backend):
+    """The reference's cross-block tie case (``tests/test_kernels.py``):
+    two equal unembedding rows in different vocab blocks; argmax takes
+    the first.  tau' is each backend's OWN conf — the plain chain's
+    max(softmax) and the kernel's 1/s differ in the low bits — and at
+    tau' == conf the strict compare never fires."""
+    d, v = 8, 32
+    h = np.ones((1, d), np.float32)
+    scale = np.ones(d, np.float32)
+    tab = np.zeros((v, d), np.float32)
+    tab[5] = tab[21] = 0.3
+    if backend == "port":
+        def run(th):
+            return [t.numpy() for t in ref_exit_head_gate(
+                *map(torch.from_numpy, (h, scale, tab, th)))]
+    else:
+        def run(th):
+            return [np.asarray(t) for t in exit_head_gate_pallas(
+                *map(jnp.asarray, (h, scale, tab, th)), block_v=16,
+                interpret=True)]
+    conf, pred, _ = run(np.zeros(1, np.float32))
+    assert int(pred[0]) == 5
+    own = conf.astype(np.float32)
+    edge = np.abs(conf - own) < 1e-6
+    assert int(edge.sum()) == 1
+    assert int(run(own)[2][0]) == 0             # tau' == conf: no fire
+    assert int(run(own - 1e-3)[2][0]) == 1
+    assert int(run(own + 1e-3)[2][0]) == 0
+
+
+def _page_inputs(seed, n=7, psz=3, trailing=(2, 5), s=4, p=5, lo=0):
+    rs = np.random.RandomState(seed)
+    pages = rs.randn(n, psz, *trailing).astype(np.float32)
+    table = rs.randint(lo, n + 3, (s, p)).astype(np.int32)
+    table[0, 0] = n                                   # just past the end
+    return pages, table
+
+
+def test_paged_gather_plain_matches_jax_ref_bit_for_bit():
+    # ids past the end and below zero: clipped to [0, N-1] (mode="clip")
+    for seed, lo in ((0, 0), (1, -3)):
+        pages, table = _page_inputs(seed, lo=lo)
+        got = ref_paged_gather(torch.from_numpy(pages),
+                               torch.from_numpy(table))
+        want = jax_paged_ref.ref_paged_gather(jnp.asarray(pages),
+                                              jnp.asarray(table))
+        assert got.shape == (4, 15, 2, 5)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (table < 0).any() and (table >= 7).any()
+
+
+def test_paged_gather_plain_matches_pallas_interpret_bit_for_bit():
+    # ids past the end clip to the last page in both; the Pallas kernel
+    # wraps a negative id to the last page (its block index) where the
+    # JAX ref and the port clip to 0, so negative ids are held against
+    # the ref only (the decoder never writes one into a page table)
+    pages, table = _page_inputs(2)
+    assert (table >= 7).any()
+    got = ref_paged_gather(torch.from_numpy(pages), torch.from_numpy(table))
+    want = paged_gather_pallas(jnp.asarray(pages), jnp.asarray(table),
+                               interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_dispatch_on_cpu_takes_ref_and_never_builds(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("kernels/build.py touched on a CPU tensor")
@@ -157,7 +294,17 @@ def test_dispatch_on_cpu_takes_ref_and_never_builds(monkeypatch):
     assert torch.equal(dispatch.difficulty_components(x),
                        ref_components(x))
     assert torch.equal(dispatch.image_difficulty(x), ref_components(x)[:, 3])
-    assert dispatch.launch_counts() == {"exit_gate": 0, "difficulty": 0}
+    h, scale, tab, th, _ = _head_inputs(3, 16, 40, seed=3)
+    args = [torch.from_numpy(a) for a in (h, scale, tab, th)]
+    for got, want in zip(dispatch.exit_head_gate(*args),
+                         ref_exit_head_gate(*args)):
+        assert torch.equal(got, want)
+    pages, table = _page_inputs(4, lo=-2)
+    pages, table = torch.from_numpy(pages), torch.from_numpy(table)
+    assert torch.equal(dispatch.paged_gather(pages, table),
+                       ref_paged_gather(pages, table))
+    assert dispatch.launch_counts() == {"exit_gate": 0, "difficulty": 0,
+                                        "exit_head": 0, "paged_gather": 0}
 
 
 def test_dispatch_and_wrappers_refuse_other_devices():
@@ -171,6 +318,15 @@ def test_dispatch_and_wrappers_refuse_other_devices():
         dkernel.difficulty_cuda(torch.zeros(1, 8, 8, 3), tau_edge=0.1,
                                 var_scale=0.05, grad_scale=0.2, w1=0.4,
                                 w2=0.3, w3=0.3)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        dispatch.paged_gather(torch.empty((3, 2, 4), device="meta"),
+                              torch.zeros((1, 2), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        hkernel.exit_head_gate_cuda(torch.zeros(2, 8), torch.ones(8),
+                                    torch.zeros(16, 8), torch.zeros(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        pkernel.paged_gather_cuda(torch.zeros(3, 2, 4),
+                                  torch.zeros((1, 2), dtype=torch.int32))
 
 
 def _imported_roots(path: pathlib.Path):
@@ -194,8 +350,15 @@ def test_port_imports_neither_jax_nor_repro():
 
 def test_build_names_every_source_and_keys_on_content():
     names = {s.name for s in build.sources()}
-    assert names == {"exit_gate.cu", "difficulty.cu"}
+    assert names == {"exit_gate.cu", "difficulty.cu", "exit_head.cu",
+                     "paged_gather.cu"}
     lib = build.library_path()
     assert lib.parent == ROOT / "build" / "repro_torch"
     assert lib == build.library_path()
-    assert set(build.SIGNATURES) == {"exit_gate_launch", "difficulty_launch"}
+    assert set(build.SIGNATURES) == {
+        "exit_gate_launch", "difficulty_launch", "exit_head_slices",
+        "exit_head_launch", "paged_gather_launch"}
+    # every C entry point is declared where its source defines it
+    text = "".join(src.read_text() for src in build.sources())
+    for name in build.SIGNATURES:
+        assert f'extern "C" int {name}(' in text
