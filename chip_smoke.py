@@ -12,14 +12,17 @@ Phases, each printing one JSON line:
    (median of 21 blocks after warm-up) beside its bound; the public
    ``softmax_confidence`` op on (..., V) card tensors against the CPU.
    The LM exit head at (n_slots in 1, 16, 64, 100; 2048; 32000) and
-   (7, 72, 1003) in bf16 and f32: conf within 1e-5 of a float64
+   (7, 72, 1003) in bf16 and f32, at (256, 2048, 32000) bf16 (one table
+   read for 256 rows) and at (5, 70, 1003) bf16 (rows that TMA cannot
+   describe): conf within 1e-5 of a float64
    evaluation of the kernel's own fp32 semantics, pred equal to it
    outside rows whose float64 top-2 gap is < 1e-4, and against the
    plain bf16 chain pred equal outside its bf16 ties (top-2 gap within
    one ulp of the max) and fire equal outside |conf - tau'| < 1e-5, both
-   exemptions counted; planted tau' = conf rows never fire.  The paged
-   gather bit-equal to its plain version at the decoder's shapes, with
-   page ids past both ends in the table.
+   exemptions counted; planted tau' = conf rows never fire.  Each row of
+   exit_head and difficulty carries bound_fraction = bound_ms / ms.  The
+   paged gather bit-equal to its plain version at the decoder's shapes,
+   with page ids past both ends in the table.
 4. engine  — VGG-16/CIFAR-10 at full width (4 exits, ~15.5 M params,
    seeded random init) through ``DartEngine``: calibration on
    synth-CIFAR, the joint-DP policy, then a median policy so rows exit
@@ -45,14 +48,15 @@ Phases, each printing one JSON line:
    (max_len 1024): tokens/s (median of the timed runs), the decode step
    and per-request prefill times, the exit-stage histogram, the mean
    layer fraction, peak memory, a torch.profiler window of decode steps
-   (device busy share, kernels per step, the kernels that take the
-   time), and the launches of exit_head and paged_gather, exactly 4 and
-   44 per decode step; at 16 slots also the agreement with the bf16
-   eager oracle, each divergent row classed as flagged, as a
-   head-precision case (the kernel's fp32 head, run on the oracle's own
-   hidden rows, decides otherwise than the oracle's bf16 head) or as
-   neither.
-8. the kernels summary line, then the ``ok`` line.
+   (device busy share, kernels per step, the exit heads' device ms per
+   step, the kernels that take the time), and the launches of exit_head
+   and paged_gather, exactly 4 and 44 per decode step; at 16 slots also
+   the agreement with the bf16 eager oracle, each divergent row classed
+   as flagged, as a head-precision case (the kernel's fp32 head, run on
+   the oracle's own hidden rows, decides otherwise than the oracle's bf16
+   head) or as neither.
+8. the kernels summary line (with each redesigned kernel's earlier
+   time beside its time), then the ``ok`` line.
 
 Any failed check raises: the script exits non-zero and prints no ``ok``
 line.  Without CUDA it exits 1 before printing anything.
@@ -107,6 +111,10 @@ LM_EDGE = 1e-5
 LM_BETA = 1e-4
 #: timed serving runs per pool size (after one warm-up run)
 SERVE_RUNS = 3
+#: the times of the kernels' previous designs at the summary's shapes,
+#: on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table, the
+#: chip_smoke.py run of the second slice of the port)
+EARLIER_MS = {"exit_head": 0.289, "difficulty": 0.0171}
 
 
 class SmokeFailure(RuntimeError):
@@ -309,7 +317,7 @@ def check_difficulty(ref, kern, gen, cfg):
             emit(phase="kernels", kernel="difficulty", shape=[b, h, w, c],
                  err_edge=err[0], err_var=err[1], err_grad=err[2],
                  err_alpha=err[3], ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                 bound_by=by)
+                 bound_by=by, bound_fraction=bms / ms)
             worst = max(worst, max(err))
     return worst
 
@@ -324,7 +332,8 @@ def head_bounds(b, d, v, itemsize):
     written once.  The operations: B*V*D products kept at fp32 accuracy,
     which the tensor cores can give as three split-precision passes
     (bf16 for 2-byte inputs, TF32 for fp32).  The last number is the
-    bound of this kernel's design, fp32 FMAs outside the tensor cores."""
+    bound of the SIMT design that f32 and f16 tables take, fp32 FMAs
+    outside the tensor cores."""
     nbytes = (v * d + b * d + d) * itemsize + b * 4 + b * 12
     peak = BF16_TC_OPS_PER_S if itemsize == 2 else TF32_TC_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -373,8 +382,10 @@ def head_inputs(b, d, v, dtype, gen):
 
 HEAD_CASES = ([(b, 2048, 32000, dt) for dt in (torch.bfloat16, torch.float32)
                for b in (1, 16, 64)]
-              + [(100, 2048, 32000, torch.bfloat16)]
-              + [(7, 72, 1003, dt) for dt in (torch.bfloat16, torch.float32)])
+              + [(100, 2048, 32000, torch.bfloat16),
+                 (256, 2048, 32000, torch.bfloat16)]
+              + [(7, 72, 1003, dt) for dt in (torch.bfloat16, torch.float32)]
+              + [(5, 70, 1003, torch.bfloat16)])
 
 
 def check_exit_head(ref, kern, gen):
@@ -434,7 +445,8 @@ def check_exit_head(ref, kern, gen):
                    edge_rows=int(edge.sum()), planted=int(planted.sum()),
                    fired=int(fire.sum()), ms=ms, plain_ms=plain_ms,
                    gemm_floor_ms=gemm_ms, bound_ms=bms, bound_by=by,
-                   bytes_bound_ms=bytes_ms, fp32_fma_bound_ms=fma_ms)
+                   bound_fraction=bms / ms, bytes_bound_ms=bytes_ms,
+                   fp32_fma_bound_ms=fma_ms)
         emit(**row)
         worst = max(worst, err)
         if (b, d, v, dtype) == (64, 2048, 32000, torch.bfloat16):
@@ -782,9 +794,13 @@ def lm_profile(eng, reqs, n_slots, steps=8):
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
+    # every kernel of an exit_head launch (csrc/exit_head.cu) is head_*
+    head_us = sum(e.self_device_time_total for e in kern
+                  if "::head_" in e.key)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     return {"steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
             "device_ms_per_step": busy_us / 1e3 / steps,
+            "exit_head_ms_per_step": head_us / 1e3 / steps,
             "device_busy_share": busy_us / 1e6 / wall,
             "kernels_per_step": sum(e.count for e in kern) / steps,
             "top_kernels_ms_per_step": [
@@ -956,6 +972,7 @@ def main() -> int:
               w2=DEFAULT.w_variance, w3=DEFAULT.w_gradient)
     gate_b, gate_by = gate_bound(1024, 10, 4)
     diff_b, diff_by = difficulty_bound(1024, 32, 32, 3)
+    diff_ms = time_ms(lambda: dkern.difficulty_cuda(img, **kw))
     summary = {"kernels": [
         {"name": "exit_gate", "route": "cuda",
          "source": "src/repro_torch/csrc/exit_gate.cu",
@@ -973,17 +990,20 @@ def main() -> int:
          "source": "src/repro_torch/csrc/difficulty.cu",
          "replaces": "src/repro/kernels/difficulty/difficulty_kernel.py:86",
          "launches": vgg["difficulty"], "max_abs_err": diff_err,
-         "ms": time_ms(lambda: dkern.difficulty_cuda(img, **kw)),
+         "ms": diff_ms, "earlier_ms": EARLIER_MS["difficulty"],
          "plain_ms": time_ms(lambda: dref.ref_components(img, **kw)),
-         "bound_ms": diff_b, "bound_by": diff_by, "library_ms": None,
+         "bound_ms": diff_b, "bound_by": diff_by,
+         "bound_fraction": diff_b / diff_ms, "library_ms": None,
          "shape": [1024, 32, 32, 3]},
         {"name": "exit_head", "route": "cuda",
          "source": "src/repro_torch/csrc/exit_head.cu",
          "replaces": "src/repro/kernels/exit_head/exit_head_kernel.py:98",
          "launches": lm["launches"]["exit_head"], "max_abs_err": head_err,
-         "ms": head_main["ms"], "plain_ms": head_main["plain_ms"],
+         "ms": head_main["ms"], "earlier_ms": EARLIER_MS["exit_head"],
+         "plain_ms": head_main["plain_ms"],
          "bound_ms": head_main["bound_ms"],
-         "bound_by": head_main["bound_by"], "library_ms": None,
+         "bound_by": head_main["bound_by"],
+         "bound_fraction": head_main["bound_fraction"], "library_ms": None,
          "gemm_floor_ms": head_main["gemm_floor_ms"],
          "fp32_fma_bound_ms": head_main["fp32_fma_bound_ms"],
          "shape": head_main["shape"], "dtype": head_main["dtype"]},

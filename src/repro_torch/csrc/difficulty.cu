@@ -13,26 +13,48 @@
 // Output (B, 4) = (a_edge, a_var, a_grad, alpha).
 //
 // Bound on an H100: each image is read from device memory once,
-// B*H*W*C*4 bytes at 3.35 TB/s; the stencils are a few tens of flops per
-// pixel, far below the fp32 rate.
+// B*H*W*C*4 bytes at 3.35 TB/s (12.6 MB, 0.0038 ms, for 1024 images of
+// 32x32x3); the stencils are a few tens of flops per pixel, far below
+// the fp32 rate.  With every image of a bucket in flight at once, the
+// bytes arrive together, so what is left is the launch and the latency of
+// one image's chain of passes and barriers after its last byte lands.
 //
-// Design: one block per image, no shared-memory tile, so any H, W >= 3
-// and any C work (a 224x224x3 image, 602 KB, would not fit in a block's
-// shared memory).  Pass 1 reduces the per-channel sums to channel means.
-// Pass 2 walks the pixels once more: the squared deviations, and on the
-// valid region the Sobel and Laplacian stencils with gray computed on the
-// fly from the 3x3 neighbourhood.  That neighbourhood is read again by
-// the neighbouring threads; the re-reads hit L1/L2 (a 32x32x3 image is
-// 12 KB, a 1024-image bucket 12.6 MB, inside the 50 MB L2), so device
-// memory still sees each byte about once.
+// Design (difficulty_staged_kernel, every image whose staged bytes fit a
+// block's shared memory): a group of threads copies the whole image into
+// shared memory with asynchronous copies (16 bytes each where the image
+// allows, 4 otherwise), its only read of device memory.  It then computes
+// gray once per pixel into a second shared tile together with the channel
+// sums, reduces the channel sums (four channels per reduction) to the
+// means, takes the squared deviations from the staged image (the two-pass
+// variance of jnp.var), runs the Sobel and Laplacian stencils down the
+// columns of the gray tile with the 3x3 window in registers (one new row
+// of three values a step), and ends with one reduction of the three
+// per-image sums.  The per-pixel arithmetic is that of difficulty_kernel
+// below, in the same order, so an edge decision can move only with the
+// order of a sum; sqrtf(m) > tau_edge is taken as m > edge_threshold(
+// tau_edge), which decides every m the same way without a square root.
+// A group has 256 threads when the card holds one or two images an SM,
+// 128 for three or four, and 64 (four groups a block, one named barrier
+// each) for more: few images want short chains, many want few warps and
+// barriers per image.  The grid is the images the card holds at once:
+// with more images than that, a group takes several in turn and stages
+// the next one while the stencils of the present one run.
+//
+// Larger images (224x224x3 is 602 KB) keep difficulty_kernel, chosen by
+// staged size alone: one block per image, no shared-memory tile.  Pass 1
+// reduces the per-channel sums to channel means.  Pass 2 walks the pixels
+// once more: the squared deviations, and on the valid region the Sobel
+// and Laplacian stencils with gray computed on the fly from the 3x3
+// neighbourhood, whose re-reads hit L1/L2.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;             // difficulty_kernel
 constexpr int kWarp = 32;
+constexpr int kStagedThreads = 256;       // difficulty_staged_kernel
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -55,18 +77,232 @@ __device__ float block_sum(float v, float* scratch) {
   return total;
 }
 
-__device__ __forceinline__ float gray_at(const float* __restrict__ img,
-                                         int pix, int c) {
-  const float* p = img + static_cast<int64_t>(pix) * c;
+// gray of one pixel from its c channels
+__device__ __forceinline__ float gray_of(const float* p, int c) {
   if (c == 3) return 0.299f * p[0] + 0.587f * p[1] + 0.114f * p[2];
   float s = 0.f;
   for (int k = 0; k < c; ++k) s += p[k];
   return s / static_cast<float>(c);
 }
 
+// the same from channels already in registers, c <= 4
+__device__ __forceinline__ float gray_of4(const float (&x)[4], int c) {
+  if (c == 3) return 0.299f * x[0] + 0.587f * x[1] + 0.114f * x[2];
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (k < c) s += x[k];
+  return s / static_cast<float>(c);
+}
+
+__device__ __forceinline__ float gray_at(const float* __restrict__ img,
+                                         int pix, int c) {
+  return gray_of(img + static_cast<int64_t>(pix) * c, c);
+}
+
+// Eq. 8 from the three per-image sums; writes the (4,) output row
+__device__ __forceinline__ void finish(float* o, float sq, float lap_abs,
+                                       float edges, int h, int w, int c,
+                                       float var_scale, float grad_scale,
+                                       float w1, float w2, float w3) {
+  const float valid = static_cast<float>((h - 2) * (w - 2));
+  const float a_edge = edges / valid;
+  const float var = sq / static_cast<float>(h * w * c);
+  const float a_var = 1.f - expf(-var / var_scale);
+  const float a_grad = 1.f - expf(-(lap_abs / valid) / grad_scale);
+  const float alpha = fminf(fmaxf(w1 * a_edge + w2 * a_var + w3 * a_grad,
+                                  0.f), 1.f);
+  o[0] = a_edge;
+  o[1] = a_var;
+  o[2] = a_grad;
+  o[3] = alpha;
+}
+
+// Sobel magnitude > tau_edge and |Laplacian| of one pixel of the valid
+// region from its 3x3 gray neighbourhood (top, middle, bottom rows).
+// sqrtf(m) > tau_edge is m > edge_sq (see edge_threshold).
+__device__ __forceinline__ void stencil(float tl, float tc, float tr,
+                                        float ml, float mc, float mr,
+                                        float bl, float bc, float br,
+                                        float edge_sq, float& edges,
+                                        float& lap_abs) {
+  const float gx = (tr + 2.f * mr + br) - (tl + 2.f * ml + bl);
+  const float gy = (bl + 2.f * bc + br) - (tl + 2.f * tc + tr);
+  edges += gx * gx + gy * gy > edge_sq ? 1.f : 0.f;
+  lap_abs += fabsf(tc + ml + mr + bc - 4.f * mc);
+}
+
+__host__ __device__ __forceinline__ int64_t pad4(int64_t n) {
+  return (n + 3) & ~int64_t{3};
+}
+
+// floats of one image's shared tile: the image, then its gray
+__host__ __device__ __forceinline__ int64_t staged_floats(int h, int w,
+                                                          int c) {
+  return pad4(static_cast<int64_t>(h) * w * c) +
+         pad4(static_cast<int64_t>(h) * w);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Images staged whole in shared memory, several at once: a group of
+// `gt` threads (whole warps, at most 256, named barrier 1 + group) takes
+// one image at a time.  A group's tile is its image (n = h*w*c floats)
+// and the image's gray (h*w floats), each padded to 16 bytes.
+__global__ void __launch_bounds__(kStagedThreads)
+difficulty_staged_kernel(const float* __restrict__ images,
+                         float* __restrict__ out, int b, int h, int w, int c,
+                         int gt, int vec, float edge_sq, float var_scale,
+                         float grad_scale, float w1, float w2, float w3) {
+  extern __shared__ float4 smem4[];
+  __shared__ float sums[kStagedThreads / kWarp][4];   // channel sums
+  __shared__ float tail[kStagedThreads / kWarp][3];   // per-image sums
+  const int hw = h * w, n = hw * c;
+  const int groups = blockDim.x / gt, grp = threadIdx.x / gt;
+  const int tid = threadIdx.x % gt, nw = gt / kWarp;
+  const int warp = tid / kWarp, lane = tid % kWarp, row0 = grp * nw;
+  float* img = reinterpret_cast<float*>(smem4) + grp * staged_floats(h, w, c);
+  float* gray = img + pad4(n);
+  const int bar = 1 + grp;
+  auto sync = [&] {
+    asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(gt) : "memory");
+  };
+
+  // this thread's share of the copy of image i, in one cp.async group
+  auto stage = [&](int i) {
+    const float* src = images + static_cast<int64_t>(i) * n;
+    if (vec) {
+      for (int e = tid; e < n / 4; e += gt)
+        cp_async16(img + 4 * e, src + 4 * e);
+    } else {
+      for (int e = tid; e < n; e += gt) cp_async4(img + e, src + e);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  const int step = gridDim.x * groups;
+  int i = blockIdx.x * groups + grp;
+  if (i < b) stage(i);
+  for (; i < b; i += step) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    sync();                                       // image i is staged
+
+    // gray once per pixel; channel sums and then the squared deviations
+    // (two-pass variance), four channels at a time
+    float sq = 0.f;
+    for (int c0 = 0; c0 < c; c0 += 4) {
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int p = tid; p < hw; p += gt) {
+        const float* px = img + p * c;
+        float x[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) x[k] = c0 + k < c ? px[c0 + k] : 0.f;
+        if (c0 == 0) gray[p] = c <= 4 ? gray_of4(x, c) : gray_of(px, c);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) s[k] += x[k];
+      }
+      if (c0 > 0) sync();                         // last group's sums read
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        s[k] = warp_sum(s[k]);
+        if (lane == 0) sums[row0 + warp][k] = s[k];
+      }
+      sync();                                     // also publishes gray
+      float mean[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float total = 0.f;
+        for (int j = 0; j < nw; ++j) total += sums[row0 + j][k];
+        mean[k] = total / static_cast<float>(hw);
+      }
+#pragma unroll 4
+      for (int p = tid; p < hw; p += gt) {
+        const float* px = img + p * c;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (c0 + k < c) {
+            const float d = px[c0 + k] - mean[k];
+            sq += d * d;
+          }
+        }
+      }
+    }
+
+    const int next = i + step;
+    if (next < b) {                               // the same for the group
+      sync();                                     // image i is read
+      stage(next);                                // in flight meanwhile
+    }
+
+    // the stencils: a thread walks down one column of the valid region
+    // (or of one band of its rows), keeping the 3x3 window in registers,
+    // so each step reads one new row of three gray values
+    float lap_abs = 0.f, edges = 0.f;
+    const int vw = w - 2, vh = h - 2;
+    const int bands = vw >= gt ? 1 : gt / vw;
+    const int band_rows = (vh + bands - 1) / bands;
+    for (int u = tid; u < bands * vw; u += gt) {
+      const int band = u / vw;
+      const float* col = gray + (u % vw + 1);
+      const int y0 = 1 + band * band_rows;
+      const int y1 = min(vh, (band + 1) * band_rows);
+      if (y0 > y1) continue;
+      const float* r = col + (y0 - 1) * w;
+      float tl = r[-1], tc = r[0], tr = r[1];
+      r += w;
+      float ml = r[-1], mc = r[0], mr = r[1];
+#pragma unroll 2
+      for (int y = y0; y <= y1; ++y) {
+        r += w;
+        const float bl = r[-1], bc = r[0], br = r[1];
+        stencil(tl, tc, tr, ml, mc, mr, bl, bc, br, edge_sq, edges,
+                lap_abs);
+        tl = ml, tc = mc, tr = mr;
+        ml = bl, mc = bc, mr = br;
+      }
+    }
+
+    // the one reduction of the per-image sums.  Edge counts stay exact
+    // in fp32 up to 2^24 pixels per image.
+    sq = warp_sum(sq);
+    lap_abs = warp_sum(lap_abs);
+    edges = warp_sum(edges);
+    if (lane == 0) {
+      tail[row0 + warp][0] = sq;
+      tail[row0 + warp][1] = lap_abs;
+      tail[row0 + warp][2] = edges;
+    }
+    sync();
+    if (tid == 0) {
+      float t[3] = {0.f, 0.f, 0.f};
+      for (int j = 0; j < nw; ++j)
+        for (int k = 0; k < 3; ++k) t[k] += tail[row0 + j][k];
+      finish(out + static_cast<int64_t>(i) * 4, t[0], t[1], t[2], h, w, c,
+             var_scale, grad_scale, w1, w2, w3);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 difficulty_kernel(const float* __restrict__ images, float* __restrict__ out,
-                  int h, int w, int c, float tau_edge, float var_scale,
+                  int h, int w, int c, float edge_sq, float var_scale,
                   float grad_scale, float w1, float w2, float w3) {
   extern __shared__ float mean[];                 // (c,) channel means
   __shared__ float scratch[kThreads / kWarp];
@@ -102,30 +338,82 @@ difficulty_kernel(const float* __restrict__ images, float* __restrict__ out,
     const float bl = gray_at(img, p + w - 1, c);
     const float bc = gray_at(img, p + w, c);
     const float br = gray_at(img, p + w + 1, c);
-    const float gx = (tr + 2.f * mr + br) - (tl + 2.f * ml + bl);
-    const float gy = (bl + 2.f * bc + br) - (tl + 2.f * tc + tr);
-    edges += sqrtf(gx * gx + gy * gy) > tau_edge ? 1.f : 0.f;
-    lap_abs += fabsf(tc + ml + mr + bc - 4.f * mc);
+    stencil(tl, tc, tr, ml, mc, mr, bl, bc, br, edge_sq, edges, lap_abs);
   }
   // Edge counts stay exact in fp32 up to 2^24 pixels per image.
   sq = block_sum(sq, scratch);
   lap_abs = block_sum(lap_abs, scratch);
   edges = block_sum(edges, scratch);
 
-  if (threadIdx.x == 0) {
-    const float valid = static_cast<float>((h - 2) * (w - 2));
-    const float a_edge = edges / valid;
-    const float var = sq / static_cast<float>(hw * c);
-    const float a_var = 1.f - expf(-var / var_scale);
-    const float a_grad = 1.f - expf(-(lap_abs / valid) / grad_scale);
-    const float alpha = fminf(fmaxf(w1 * a_edge + w2 * a_var + w3 * a_grad,
-                                    0.f), 1.f);
-    float* o = out + static_cast<int64_t>(blockIdx.x) * 4;
-    o[0] = a_edge;
-    o[1] = a_var;
-    o[2] = a_grad;
-    o[3] = alpha;
-  }
+  if (threadIdx.x == 0)
+    finish(out + static_cast<int64_t>(blockIdx.x) * 4, sq, lap_abs, edges, h,
+           w, c, var_scale, grad_scale, w1, w2, w3);
+}
+
+// The largest m with sqrtf(m) <= tau, so that sqrtf(m) > tau exactly
+// when m > edge_threshold(tau): sqrtf is correctly rounded on the host
+// and on the card, and never decreases.  The kernels compare the squared
+// Sobel magnitude with it and take no square root.
+float edge_threshold(float tau) {
+  if (tau < 0.f) return -1.f;                     // every m >= 0 is an edge
+  if (!(tau < INFINITY)) return tau;              // inf: none; NaN: none
+  float t = tau * tau;
+  while (sqrtf(t) > tau) t = nextafterf(t, 0.f);
+  while (sqrtf(nextafterf(t, INFINITY)) <= tau) t = nextafterf(t, INFINITY);
+  return t;
+}
+
+// Shared memory a block may have beyond the staged kernel's static part
+constexpr int64_t kMaxStaged = 227 * 1024 - 1024;
+
+// The block of the staged kernel: groups of `gt` threads, one image
+// each, as many as make a block of 256 threads and fit its shared memory.
+// Returns 0 groups when one image does not fit a block.
+struct Staging {
+  int gt, groups;
+  int64_t smem;
+};
+
+Staging staging(int h, int w, int c, int gt) {
+  const int64_t bytes = 4 * staged_floats(h, w, c);
+  if (bytes > kMaxStaged) return Staging{0, 0, 0};
+  int groups = kStagedThreads / gt;
+  while (groups > 1 && groups * bytes > kMaxStaged) --groups;
+  return Staging{gt, groups, groups * bytes};
+}
+
+int launch_staged(const float* images, float* out, int b, int h, int w,
+                  int c, float edge_sq, float var_scale, float grad_scale,
+                  float w1, float w2, float w3, cudaStream_t stream) {
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      difficulty_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMaxStaged));
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // threads per image (see the top of this file; the three sizes were
+  // the fastest of 32 to 256 on an NVIDIA H100 80GB HBM3)
+  const int64_t per_sm_images = (static_cast<int64_t>(b) + sms - 1) / sms;
+  const int gt = per_sm_images <= 2 ? 256 : per_sm_images <= 4 ? 128 : 64;
+  const Staging st = staging(h, w, c, gt);
+  const int threads = st.gt * st.groups;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, difficulty_staged_kernel, threads, st.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // one image per group if the card holds them all, else groups loop
+  const int64_t blocks = (b + st.groups - 1) / st.groups;
+  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
+  const int grid = static_cast<int>(blocks < resident ? blocks : resident);
+  const int vec = (static_cast<int64_t>(h) * w * c) % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(images) % 16 == 0;
+  difficulty_staged_kernel<<<grid, threads, st.smem, stream>>>(
+      images, out, b, h, w, c, st.gt, vec, edge_sq, var_scale, grad_scale,
+      w1, w2, w3);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -136,9 +424,14 @@ extern "C" int difficulty_launch(const void* images, void* out, int b, int h,
                                  int w, int c, float tau_edge,
                                  float var_scale, float grad_scale, float w1,
                                  float w2, float w3, void* stream) {
-  difficulty_kernel<<<b, kThreads, c * sizeof(float),
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(images), static_cast<float*>(out), h, w, c,
-      tau_edge, var_scale, grad_scale, w1, w2, w3);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* x = static_cast<const float*>(images);
+  float* o = static_cast<float*>(out);
+  const float edge_sq = edge_threshold(tau_edge);
+  if (staging(h, w, c, kStagedThreads).groups > 0)
+    return launch_staged(x, o, b, h, w, c, edge_sq, var_scale, grad_scale,
+                         w1, w2, w3, s);
+  difficulty_kernel<<<b, kThreads, c * sizeof(float), s>>>(
+      x, o, h, w, c, edge_sq, var_scale, grad_scale, w1, w2, w3);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,9 +36,9 @@ SIGNATURES = {
     "exit_gate_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "difficulty_launch": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                           _P],
-    "exit_head_slices": [_I, _I],
-    "exit_head_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _F, _P],
+    "exit_head_plan": [_I, _I, _I, _I, _P],
+    "exit_head_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _F, _P],
     "paged_gather_launch": [_P, _P, _P, _I, _I, _L, _P],
 }
 

@@ -1,9 +1,12 @@
 """Wrapper of the CUDA difficulty estimator (``csrc/difficulty.cu``).
 
 Replaces ``repro/kernels/difficulty/difficulty_kernel.py::
-difficulty_pallas``.  One block per image reads it once (channel means,
-then the variance and both 3x3 stencils), so the kernel is bound by the
-B*H*W*C*4 bytes of the batch.
+difficulty_pallas``.  An image whose bytes fit a block's shared memory
+is staged there whole with asynchronous copies, its one read of device
+memory; gray, the channel means, the squared deviations and both 3x3
+stencils then run on shared memory, and one block reduction ends it.
+Larger images (224x224x3) take one block per image straight from device
+memory.  The kernel is bound by the B*H*W*C*4 bytes of the batch.
 """
 from __future__ import annotations
 

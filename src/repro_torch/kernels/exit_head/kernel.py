@@ -1,15 +1,28 @@
 """Wrapper of the CUDA exit head (``csrc/exit_head.cu``).
 
 Replaces ``repro/kernels/exit_head/exit_head_kernel.py::
-exit_head_gate_pallas``.  Split vocabulary: each block takes a row tile
-(so for B <= 64 the (V, D) unembedding table is read once per launch)
-and a vocabulary slice, and writes a partial (max, sum, argmax) per
-(row, slice) into the scratch this wrapper allocates; a second small
-kernel of the same launch merges them into (conf, pred, fire).  At decode
-batch sizes the table read bounds it; from a few dozen rows on, its fp32
-FMAs do.
+exit_head_gate_pallas``.  The design follows the table's dtype alone:
+
+- bfloat16: tensor cores.  A first small kernel writes hn (fp32 rmsnorm
+  times scale) as three bf16 terms (hi, mid, lo: together the 24 bits
+  of fp32, so the products keep fp32 accuracy) into a workspace this
+  wrapper allocates; the main kernel streams the (V, D) table through a
+  three-stage TMA ring and runs three ``wgmma`` passes over each table
+  tile, one per term.  The tensor cores' own fp32 sums drop low bits
+  over D = 2048, so each 64-wide K tile's sum is promoted into an fp32
+  register sum.  Bound on an H100: the table read (0.039 ms at
+  V = 32000, D = 2048) up to B ~ 100 rows, the tensor cores beyond.
+- float32 and float16: fp32 FMAs outside the tensor cores, with a
+  vocabulary slice and a row tile a block (0.125 ms at B = 64).
+
+Either way each block writes a partial (max, sum, first argmax) per
+(row, vocabulary slice) into scratch this wrapper allocates, and a merge
+kernel of the same launch reduces them to (conf, pred, fire).  One call
+is one counted launch, whatever kernels it runs.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -61,16 +74,27 @@ def exit_head_gate_cuda(h: torch.Tensor, scale: torch.Tensor,
     if b == 0:
         return conf, pred, fire
     lib = build.load_library()
-    n_slices = lib.exit_head_slices(b, v)
+    dtype = _DTYPES[h.dtype]
+    plan = (ctypes.c_int64 * 2)()
+    err = lib.exit_head_plan(b, d, v, dtype, plan)
+    if err:
+        raise RuntimeError(f"exit_head plan refused B={b}, D={d}, V={v}: "
+                           f"error {err}")
+    n_slices, split_bytes = plan
     part_f = torch.empty((2, b, n_slices), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, n_slices), dtype=torch.int32, device=dev)
+    # the bf16 design's hn terms (none for the SIMT design)
+    split = torch.empty(split_bytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.exit_head_launch(
             h.data_ptr(), scale.data_ptr(), table.data_ptr(),
             thresholds.data_ptr(), conf.data_ptr(), pred.data_ptr(),
-            fire.data_ptr(), part_f.data_ptr(), part_i.data_ptr(), b, d, v,
-            _DTYPES[h.dtype], eps, stream)
+            fire.data_ptr(), part_f.data_ptr(), part_i.data_ptr(),
+            split.data_ptr(), b, d, v, dtype, eps, stream)
+    if err < 0:
+        raise RuntimeError(f"exit_head: cuTensorMapEncodeTiled refused the "
+                           f"table: CUresult {-err}")
     if err:
         raise RuntimeError(f"exit_head kernel launch failed: cudaError {err}")
     launches += 1

@@ -241,6 +241,85 @@ def test_exit_head_tie_and_threshold_edge(backend):
     assert int(run(own + 1e-3)[2][0]) == 0
 
 
+def _split_inputs(b, d, v, seed):
+    """bf16 (h, scale, table) as an LM exit head sees them, with a planted
+    top logit near log V + 3 in even rows (two equal table rows along the
+    row's own direction), so conf sits near 0.5, where an error in the
+    logits moves it most."""
+    rs = np.random.RandomState(seed)
+    h = rs.randn(b, d).astype(np.float32)
+    scale = (1.0 + 0.1 * rs.randn(d)).astype(np.float32)
+    tab = (0.02 * rs.randn(v, d)).astype(np.float32)
+    rows = np.arange(0, b, 2)
+    idx = (rows * 97) % (v // 2)
+    dirn = h[rows] * scale
+    dirn = (np.log(v) + 3) * dirn / np.sum(dirn ** 2, axis=1, keepdims=True)
+    tab[idx] = tab[idx + v // 2] = dirn
+    return [torch.from_numpy(a).to(torch.bfloat16) for a in (h, scale, tab)]
+
+
+def _split_terms(hn, n):
+    """The first n bf16 terms of fp32 hn: hi = bf16(hn), mid = bf16(hn -
+    hi), lo = bf16(hn - hi - mid), as ``head_split_kernel`` forms them."""
+    terms, rest = [], hn
+    for _ in range(n):
+        terms.append(rest.to(torch.bfloat16))
+        rest = rest - terms[-1].float()
+    return terms
+
+
+def _split_head(h, scale, tab, n_terms):
+    """conf and pred of the tensor-core design's arithmetic: fp32 hn split
+    into bf16 terms, one fp32-accumulated product per term against the
+    bf16 table (each product of two bf16 values is exact in fp32), the
+    smallest term first, summed in fp32."""
+    x = h.float()
+    hn = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6) \
+        * scale.float()
+    logits = None
+    for term in reversed(_split_terms(hn, n_terms)):
+        part = term.float() @ tab.float().T
+        logits = part if logits is None else logits + part
+    conf = 1.0 / torch.exp(logits - logits.amax(-1, keepdim=True)).sum(-1)
+    return conf, logits.argmax(-1)
+
+
+@pytest.mark.parametrize("b,d,v", [(8, 2048, 4096), (7, 72, 1003)])
+def test_exit_head_split_precision_matches_float64(b, d, v):
+    """The bf16 tensor-core exit head's arithmetic, emulated in plain
+    torch, against float64 of the kernel's fp32 semantics: conf within
+    1e-6, pred equal outside float64 top-2 gaps below 1e-4.
+
+    Why three terms: with these inputs (conf up to ~0.49) one term (hn
+    rounded to bf16) is 3.2e-5 (8, 2048, 4096) and 6.5e-5 (7, 72, 1003)
+    off float64; two terms (hi + mid, 16 of hn's 24 bits) are 8.4e-8
+    and 1.5e-7 off; three are 8.4e-8 and 9.3e-8 off, the rounding of the
+    fp32 sums themselves.  Two terms already sit inside the tolerance
+    here; the third makes hn exact to fp32, so no input can leave it
+    short.  The tensor cores' own accumulation, and the promotion of
+    each K tile's sum into fp32 registers that the kernel does about it,
+    cannot be emulated here: the card's check covers them."""
+    h, scale, tab = _split_inputs(b, d, v, seed=b * 7 + v)
+    x = h.double()
+    hn = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6) \
+        * scale.double()
+    lg = hn @ tab.double().T
+    top2 = lg.topk(2, dim=-1).values
+    want = 1.0 / torch.exp(lg - top2[:, :1]).sum(-1)
+    assert float(want.max()) > 0.4                 # the planted rows
+    conf, pred = _split_head(h, scale, tab, 3)
+    assert float((conf.double() - want).abs().max()) <= 1e-6
+    near = (top2[:, 0] - top2[:, 1]) < 1e-4
+    assert torch.equal(pred[~near], lg.argmax(-1)[~near])
+    # the split is exact to fp32: hi + mid + lo gives hn back
+    x = h.float()
+    hn32 = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6) \
+        * scale.float()
+    hi, mid, lo = (t.double() for t in _split_terms(hn32, 3))
+    assert float(((hi + mid + lo) - hn32.double()).abs().max()) \
+        <= 2.0 ** -24 * float(hn32.abs().max())
+
+
 def _page_inputs(seed, n=7, psz=3, trailing=(2, 5), s=4, p=5, lo=0):
     rs = np.random.RandomState(seed)
     pages = rs.randn(n, psz, *trailing).astype(np.float32)
@@ -356,7 +435,7 @@ def test_build_names_every_source_and_keys_on_content():
     assert lib.parent == ROOT / "build" / "repro_torch"
     assert lib == build.library_path()
     assert set(build.SIGNATURES) == {
-        "exit_gate_launch", "difficulty_launch", "exit_head_slices",
+        "exit_gate_launch", "difficulty_launch", "exit_head_plan",
         "exit_head_launch", "paged_gather_launch"}
     # every C entry point is declared where its source defines it
     text = "".join(src.read_text() for src in build.sources())
