@@ -20,7 +20,8 @@ Phases, each printing one JSON line:
    plain bf16 chain pred equal outside its bf16 ties (top-2 gap within
    one ulp of the max) and fire equal outside |conf - tau'| < 1e-5, both
    exemptions counted; planted tau' = conf rows never fire.  Each row of
-   exit_head and difficulty carries bound_fraction = bound_ms / ms.  The
+   exit_head and difficulty carries bound_fraction = bound_ms / ms and
+   host_ms, the host's time for one call of the wrapper.  The
    paged gather bit-equal to its plain version at the decoder's shapes,
    with page ids past both ends in the table.
 4. engine  — VGG-16/CIFAR-10 at full width (4 exits, ~15.5 M params,
@@ -55,8 +56,8 @@ Phases, each printing one JSON line:
    as flagged, as a head-precision case (the kernel's fp32 head, run on
    the oracle's own hidden rows, decides otherwise than the oracle's bf16
    head) or as neither.
-8. the kernels summary line (with each redesigned kernel's earlier
-   time beside its time), then the ``ok`` line.
+8. the kernels summary line, every number in it measured or computed
+   in this run, then the ``ok`` line.
 
 Any failed check raises: the script exits non-zero and prints no ``ok``
 line.  Without CUDA it exits 1 before printing anything.
@@ -111,10 +112,6 @@ LM_EDGE = 1e-5
 LM_BETA = 1e-4
 #: timed serving runs per pool size (after one warm-up run)
 SERVE_RUNS = 3
-#: the times of the kernels' previous designs at the summary's shapes,
-#: on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel table, the
-#: chip_smoke.py run of the second slice of the port)
-EARLIER_MS = {"exit_head": 0.289, "difficulty": 0.0171}
 
 
 class SmokeFailure(RuntimeError):
@@ -157,6 +154,21 @@ def time_ms(fn, reps=21, block=20):
         end.synchronize()
         times.append(start.elapsed_time(end) / block)
     return float(np.median(times))
+
+
+def host_ms(fn, calls=100):
+    """Host time of one call (argument checks, allocations and launches),
+    with the calls queued behind a sleep kernel so that the device never
+    holds the host back."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -312,12 +324,13 @@ def check_difficulty(ref, kern, gen, cfg):
             check(err[3] <= cfg.w_edge * pixel + ALPHA_TOL,
                   f"alpha off at {(b, h, w, c)}")
             ms = time_ms(lambda: kern.difficulty_cuda(x, **kw))
+            host = host_ms(lambda: kern.difficulty_cuda(x, **kw))
             plain_ms = time_ms(lambda: ref.ref_components(x, **kw))
             bms, by = difficulty_bound(b, h, w, c)
             emit(phase="kernels", kernel="difficulty", shape=[b, h, w, c],
                  err_edge=err[0], err_var=err[1], err_grad=err[2],
                  err_alpha=err[3], ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                 bound_by=by, bound_fraction=bms / ms)
+                 bound_by=by, bound_fraction=bms / ms, host_ms=host)
             worst = max(worst, max(err))
     return worst
 
@@ -430,6 +443,7 @@ def check_exit_head(ref, kern, gen):
         check(torch.equal(fire, (conf > th).int()), "exit_head fire != conf > tau'")
         check(not bool(fire[planted].any()), "exit_head fires at conf == tau'")
         ms = time_ms(lambda: kern.exit_head_gate_cuda(h, scale, tab, th))
+        host = host_ms(lambda: kern.exit_head_gate_cuda(h, scale, tab, th))
         plain_ms = time_ms(lambda: ref.ref_exit_head_gate(h, scale, tab, th))
         gemm_ms = time_ms(lambda: h @ tab.T)
         bms, by, bytes_ms, fma_ms = head_bounds(b, d, v, h.element_size())
@@ -445,7 +459,8 @@ def check_exit_head(ref, kern, gen):
                    edge_rows=int(edge.sum()), planted=int(planted.sum()),
                    fired=int(fire.sum()), ms=ms, plain_ms=plain_ms,
                    gemm_floor_ms=gemm_ms, bound_ms=bms, bound_by=by,
-                   bound_fraction=bms / ms, bytes_bound_ms=bytes_ms,
+                   bound_fraction=bms / ms, host_ms=host,
+                   bytes_bound_ms=bytes_ms,
                    fp32_fma_bound_ms=fma_ms)
         emit(**row)
         worst = max(worst, err)
@@ -990,7 +1005,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/difficulty.cu",
          "replaces": "src/repro/kernels/difficulty/difficulty_kernel.py:86",
          "launches": vgg["difficulty"], "max_abs_err": diff_err,
-         "ms": diff_ms, "earlier_ms": EARLIER_MS["difficulty"],
+         "ms": diff_ms,
          "plain_ms": time_ms(lambda: dref.ref_components(img, **kw)),
          "bound_ms": diff_b, "bound_by": diff_by,
          "bound_fraction": diff_b / diff_ms, "library_ms": None,
@@ -999,7 +1014,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/exit_head.cu",
          "replaces": "src/repro/kernels/exit_head/exit_head_kernel.py:98",
          "launches": lm["launches"]["exit_head"], "max_abs_err": head_err,
-         "ms": head_main["ms"], "earlier_ms": EARLIER_MS["exit_head"],
+         "ms": head_main["ms"],
          "plain_ms": head_main["plain_ms"],
          "bound_ms": head_main["bound_ms"],
          "bound_by": head_main["bound_by"],

@@ -382,6 +382,38 @@ Staging staging(int h, int w, int c, int gt) {
   return Staging{gt, groups, groups * bytes};
 }
 
+// The staged kernel's launch for b images of (h, w, c) on device dev.
+struct Plan {
+  int dev, b, h, w, c;
+  int grid, threads, gt;
+  int64_t smem;
+};
+
+cudaError_t plan_staged(Plan* pl) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &sms, cudaDevAttrMultiProcessorCount, pl->dev);
+  if (err != cudaSuccess) return err;
+  // threads per image (see the top of this file; the three sizes were
+  // the fastest of 32 to 256 on an NVIDIA H100 80GB HBM3)
+  const int64_t per_sm_images = (static_cast<int64_t>(pl->b) + sms - 1) / sms;
+  const int gt = per_sm_images <= 2 ? 256 : per_sm_images <= 4 ? 128 : 64;
+  const Staging st = staging(pl->h, pl->w, pl->c, gt);
+  const int threads = st.gt * st.groups;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, difficulty_staged_kernel, threads, st.smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // one image per group if the card holds them all, else groups loop
+  const int64_t blocks = (pl->b + st.groups - 1) / st.groups;
+  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
+  pl->grid = static_cast<int>(blocks < resident ? blocks : resident);
+  pl->threads = threads;
+  pl->gt = st.gt;
+  pl->smem = st.smem;
+  return cudaSuccess;
+}
+
 int launch_staged(const float* images, float* out, int b, int h, int w,
                   int c, float edge_sq, float var_scale, float grad_scale,
                   float w1, float w2, float w3, cudaStream_t stream) {
@@ -389,29 +421,29 @@ int launch_staged(const float* images, float* out, int b, int h, int w,
       difficulty_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kMaxStaged));
   if (configured != cudaSuccess) return static_cast<int>(configured);
-  int dev = 0, sms = 0, per_sm = 0;
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // threads per image (see the top of this file; the three sizes were
-  // the fastest of 32 to 256 on an NVIDIA H100 80GB HBM3)
-  const int64_t per_sm_images = (static_cast<int64_t>(b) + sms - 1) / sms;
-  const int gt = per_sm_images <= 2 ? 256 : per_sm_images <= 4 ? 128 : 64;
-  const Staging st = staging(h, w, c, gt);
-  const int threads = st.gt * st.groups;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, difficulty_staged_kernel, threads, st.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  // one image per group if the card holds them all, else groups loop
-  const int64_t blocks = (b + st.groups - 1) / st.groups;
-  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
-  const int grid = static_cast<int>(blocks < resident ? blocks : resident);
+  // the plans of the last few shapes, per thread, so that a launch does
+  // not query the device again
+  constexpr int kPlans = 8;
+  static thread_local Plan kept[kPlans] = {};
+  static thread_local int next = 0;
+  const Plan* pl = nullptr;
+  for (const Plan& k : kept)
+    if (k.b == b && k.h == h && k.w == w && k.c == c && k.dev == dev) pl = &k;
+  if (pl == nullptr) {
+    Plan fresh{dev, b, h, w, c, 0, 0, 0, 0};
+    err = plan_staged(&fresh);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kept[next] = fresh;
+    pl = &kept[next];
+    next = (next + 1) % kPlans;
+  }
   const int vec = (static_cast<int64_t>(h) * w * c) % 4 == 0 &&
                   reinterpret_cast<uintptr_t>(images) % 16 == 0;
-  difficulty_staged_kernel<<<grid, threads, st.smem, stream>>>(
-      images, out, b, h, w, c, st.gt, vec, edge_sq, var_scale, grad_scale,
+  difficulty_staged_kernel<<<pl->grid, pl->threads, pl->smem, stream>>>(
+      images, out, b, h, w, c, pl->gt, vec, edge_sq, var_scale, grad_scale,
       w1, w2, w3);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,12 +36,13 @@
 // added into a separate fp32 register sum with fp32 adds.
 //
 // Orientation (swap-AB): the table is the 64-row M side of wgmma, the
-// B rows of hn the N side (N = B rounded up to 16, 32 or 64, or to a
-// multiple of 8 up to 112), so a block of 256 vocabulary rows keeps its
-// logits of up to 112 rows in registers.  For B <= 112 the grid reads
-// every table element from device memory once; a larger B takes several
-// N tiles, whose blocks for one vocabulary tile are launched side by
-// side so that the second and third read the table tile from L2.
+// B rows of hn the N side (N = 16, 32, 64 or 112, the smallest that
+// holds B), so a block of 256 vocabulary rows keeps its logits of up to
+// 112 rows in registers (112 is the most that fits beside the promoted
+// sums).  For B <= 112 the grid reads every table element from device
+// memory once; a larger B takes N tiles of 64, whose blocks for one
+// vocabulary tile are launched side by side so that all but the first
+// read the table tile from L2.
 //
 // Feeding: a producer warpgroup (one warp of it working, its registers
 // handed to the consumers with setmaxnreg) keeps a ring of three stages
@@ -400,7 +401,7 @@ constexpr uint32_t kTableBytes = kTV * kK * 2;           // 32 KB
 constexpr uint32_t kRowBytes = kK * 2;                   // one swizzled row
 
 template <int N> struct Cfg {
-  static_assert(N % 8 == 0 && N <= kMaxN, "N class");
+  static_assert(N % 16 == 0 && N <= kMaxN, "N class");
   static constexpr int kAcc = N / 2;      // accumulator floats a thread
   static constexpr uint32_t kTermBytes = N * kRowBytes;
   static constexpr uint32_t kHnBytes = kTerms * kTermBytes;
@@ -417,12 +418,10 @@ struct Rows {
 };
 
 Rows rows_plan(int rows) {
-  const int tiles = (rows + kMaxN - 1) / kMaxN;
-  const int per = (rows + tiles - 1) / tiles;
-  // past 64 rows the tensor cores may bound it: no more padding than 7
-  const int n = per <= 16 ? 16 : per <= 32 ? 32 : per <= 64 ? 64
-              : (per + 7) / 8 * 8;
-  return Rows{n, tiles};
+  // up to 112 rows one N tile, the smallest class that holds them; more
+  // rows take tiles of 64
+  if (rows > kMaxN) return Rows{64, (rows + 63) / 64};
+  return Rows{rows <= 16 ? 16 : rows <= 32 ? 32 : rows <= 64 ? 64 : kMaxN, 1};
 }
 
 int vocab_tiles(int v) { return (v + kTV - 1) / kTV; }
@@ -511,243 +510,56 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
 }
 
 // d (64 x N, fp32) = a (64 x 16 bf16, registers) * b (N x 16 bf16, a
-// K-major tile in shared memory)^T + (acc ? d : 0)
+// K-major tile in shared memory)^T + (acc ? d : 0), for the N classes
+// 16, 32, 64 and 112.  The asm operands are d[0 .. N/2) (%0 ...), then a,
+// b and acc; HEAD_DREGS_G and HEAD_DOPS_G list the first 8 G of d.
 template <int N> struct Mma;
 
-template <> struct Mma<16> {
-  static __device__ __forceinline__ void run(float (&d)[8],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-template <> struct Mma<32> {
-  static __device__ __forceinline__ void run(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-template <> struct Mma<64> {
-  static __device__ __forceinline__ void run(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-template <> struct Mma<72> {
-  static __device__ __forceinline__ void run(float (&d)[36],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35"
-        "}, {%36, %37, %38, %39}, %40, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-template <> struct Mma<80> {
-  static __device__ __forceinline__ void run(float (&d)[40],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39"
-        "}, {%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-template <> struct Mma<88> {
-  static __device__ __forceinline__ void run(float (&d)[44],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %49, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n88k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43"
-        "}, {%44, %45, %46, %47}, %48, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-template <> struct Mma<96> {
-  static __device__ __forceinline__ void run(float (&d)[48],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47"
-        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-template <> struct Mma<104> {
-  static __device__ __forceinline__ void run(float (&d)[52],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51"
-        "}, {%52, %53, %54, %55}, %56, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
-template <> struct Mma<112> {
-  static __device__ __forceinline__ void run(float (&d)[56],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55"
-        "}, {%56, %57, %58, %59}, %60, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-  }
-};
-
+#define HEAD_DREGS_1 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define HEAD_DREGS_2 HEAD_DREGS_1 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define HEAD_DREGS_4                                                      \
+  HEAD_DREGS_2 ", %16, %17, %18, %19, %20, %21, %22, %23"                 \
+               ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define HEAD_DREGS_7                                                      \
+  HEAD_DREGS_4 ", %32, %33, %34, %35, %36, %37, %38, %39"                 \
+               ", %40, %41, %42, %43, %44, %45, %46, %47"                 \
+               ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define HEAD_DOP8(i)                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define HEAD_DOPS_1 HEAD_DOP8(0)
+#define HEAD_DOPS_2 HEAD_DOPS_1, HEAD_DOP8(8)
+#define HEAD_DOPS_4 HEAD_DOPS_2, HEAD_DOP8(16), HEAD_DOP8(24)
+#define HEAD_DOPS_7 HEAD_DOPS_4, HEAD_DOP8(32), HEAD_DOP8(40), HEAD_DOP8(48)
+// N, G = N / 16, and the operand numbers of a[0..3], b and acc
+#define HEAD_MMA(N, G, A0, A1, A2, A3, B, P)                              \
+  template <> struct Mma<N> {                                             \
+    static __device__ __forceinline__ void run(float (&d)[N / 2],         \
+                                               const uint32_t (&a)[4],    \
+                                               uint64_t b, int acc) {     \
+      asm volatile(                                                       \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {"    \
+          HEAD_DREGS_##G "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3        \
+          "}, %" #B ", p, 1, 1, 0;\n}\n"                                  \
+          : HEAD_DOPS_##G                                                 \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc)); \
+    }                                                                     \
+  };
+HEAD_MMA(16, 1, 8, 9, 10, 11, 12, 13)
+HEAD_MMA(32, 2, 16, 17, 18, 19, 20, 21)
+HEAD_MMA(64, 4, 32, 33, 34, 35, 36, 37)
+HEAD_MMA(112, 7, 56, 57, 58, 59, 60, 61)
+#undef HEAD_MMA
+#undef HEAD_DOPS_7
+#undef HEAD_DOPS_4
+#undef HEAD_DOPS_2
+#undef HEAD_DOPS_1
+#undef HEAD_DOP8
+#undef HEAD_DREGS_7
+#undef HEAD_DREGS_4
+#undef HEAD_DREGS_2
+#undef HEAD_DREGS_1
 
 // four 8x8 bf16 matrices of shared memory into registers: lane t gives
 // the address of row t % 8 of matrix t / 8
@@ -1073,6 +885,31 @@ int encode_table(CUtensorMap* map, const void* table, int d, int v) {
   return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
 }
 
+// The table's map, kept per thread for the last few tables: a map holds
+// only the address, D, V and the fixed tile, so one kept for the same
+// (table, d, v) is the map that a new encode would give.
+int table_map(CUtensorMap* map, const void* table, int d, int v) {
+  struct Entry {
+    CUtensorMap map;
+    const void* table;
+    int d, v;
+  };
+  constexpr int kEntries = 8;
+  static thread_local Entry kept[kEntries] = {};
+  static thread_local int next = 0;
+  for (const Entry& e : kept) {
+    if (e.table == table && e.d == d && e.v == v) {
+      *map = e.map;
+      return 0;
+    }
+  }
+  const int err = encode_table(map, table, d, v);
+  if (err) return err;
+  kept[next] = Entry{*map, table, d, v};
+  next = (next + 1) % kEntries;
+  return 0;
+}
+
 template <int N>
 int launch_n(const void* h, const void* scale, const void* table,
              void* split, float* pm, float* ps, int* pi, int rows, int d,
@@ -1083,7 +920,7 @@ int launch_n(const void* h, const void* scale, const void* table,
       d % 8 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0;
   CUtensorMap map{};
   if (use_tma) {
-    const int err = encode_table(&map, table, d, v);
+    const int err = table_map(&map, table, d, v);
     if (err) return err;
   }
   static const cudaError_t configured = cudaFuncSetAttribute(
@@ -1111,8 +948,7 @@ int launch(const void* h, const void* scale, const void* table, void* split,
   case N:                                                                   \
     return launch_n<N>(h, scale, table, split, pm, ps, pi, rows, d, v,      \
                        r.tiles, eps, stream);
-    HEAD_N(16) HEAD_N(32) HEAD_N(64) HEAD_N(72) HEAD_N(80) HEAD_N(88)
-    HEAD_N(96) HEAD_N(104) HEAD_N(112)
+    HEAD_N(16) HEAD_N(32) HEAD_N(64) HEAD_N(112)
 #undef HEAD_N
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -290,6 +290,11 @@ def test_exit_head_split_precision_matches_float64(b, d, v):
     torch, against float64 of the kernel's fp32 semantics: conf within
     1e-6, pred equal outside float64 top-2 gaps below 1e-4.
 
+    This checks the arithmetic scheme, not the kernel: it calls no code
+    of the port, so a change to head_split_kernel or head_tc_kernel
+    cannot make it fail.  The kernel itself is held to float64 only on
+    the card, by chip_smoke.py's check_exit_head.
+
     Why three terms: with these inputs (conf up to ~0.49) one term (hn
     rounded to bf16) is 3.2e-5 (8, 2048, 4096) and 6.5e-5 (7, 72, 1003)
     off float64; two terms (hi + mid, 16 of hn's 24 bits) are 8.4e-8
