@@ -11,6 +11,18 @@ Phases, each printing one JSON line:
    on the card over a sweep of shapes, then timed with CUDA events
    (median of 21 blocks after warm-up) beside its bound; the public
    ``softmax_confidence`` op on (..., V) card tensors against the CPU.
+   The exit gate at every case of ``gate_cases`` (V from 1 to 129 280,
+   1 to 1500 rows, each dtype, logits not 16-byte aligned, each side of
+   each threshold of its C launcher between routes and between classes
+   of the warp route): conf and entropy within
+   1e-5 of float64 and of the plain version, pred equal to it and to
+   the planted first argmax (ties across a split chunk boundary, the
+   max in the last chunk), fire equal outside edge rows; each row
+   carries its route, the library call's time
+   (``torch.softmax(x.float(), -1).max(-1)``), bound_fraction and the
+   launch floor (an empty kernel timed the same way), and the cases
+   must take every route.  The floor and the main path's gate are also
+   timed behind a one-element torch kernel, as the engine calls the gate.
    The LM exit head at (n_slots in 1, 16, 64, 100; 2048; 32000) and
    (7, 72, 1003) in bf16 and f32, at (256, 2048, 32000) bf16 (one table
    read for 256 rows) and at (5, 70, 1003) bf16 (rows that TMA cannot
@@ -156,6 +168,16 @@ def time_ms(fn, reps=21, block=20):
     return float(np.median(times))
 
 
+def after_op_ms(fn):
+    """Device time that ``fn`` adds when it follows a one-element torch
+    kernel, as the engine's gate follows the torch ops of an exit: blocks
+    of (op, fn) less blocks of the op alone.  The torch kernel does not
+    let the next kernel start early, so ``fn`` cannot overlap it."""
+    one = torch.zeros(1, device="cuda")
+    op_ms = time_ms(lambda: one.add_(1))
+    return time_ms(lambda: (one.add_(1), fn())) - op_ms
+
+
 def host_ms(fn, calls=100):
     """Host time of one call (argument checks, allocations and launches),
     with the calls queued behind a sleep kernel so that the device never
@@ -211,30 +233,95 @@ def exact_gate(lg):
     return 1.0 / s, s.log() - (d * e).sum(dim=1) / s
 
 
-def gate_inputs(b, v, gen):
+def gate_inputs(b, v, gen, chunk):
+    """Logits (b, v), 4 * N(0, 1), with a planted top value per row: an
+    exact tie at i < v // 2 and i + v // 2 in rows 0 mod 4, a tie across
+    the boundary of two split chunks of ``chunk`` columns in rows 2 mod 4
+    (columns k * chunk - 1 and k * chunk; v // 2 - 1 and v // 2 when the
+    row is one chunk), and the max in the last column, so in the last
+    chunk, in rows 1 mod 4.  Returns (logits, thresholds, the planted
+    first argmax of each row or -1)."""
     lg = torch.randn(b, v, device="cuda", generator=gen) * 4
-    rows = torch.arange(0, b, 2, device="cuda")       # exact ties
-    top = lg[rows].amax(dim=1) + 1.0
-    i = torch.randint(0, v // 2, (len(rows),), device="cuda", generator=gen)
-    lg[rows, i] = top
-    lg[rows, i + v // 2] = top
+    want = torch.full((b,), -1, dtype=torch.long, device="cuda")
+    if v >= 2:
+        top = lg.amax(dim=1) + 1.0
+        every = torch.arange(b, device="cuda")
+        rows = every[0::4]
+        i = torch.randint(0, v // 2, (len(rows),), device="cuda",
+                          generator=gen)
+        lg[rows, i] = lg[rows, i + v // 2] = top[rows]
+        want[rows] = i
+        rows = every[2::4]
+        chunks = -(-v // chunk)
+        if chunks > 1:
+            j = torch.randint(1, chunks, (len(rows),), device="cuda",
+                              generator=gen) * chunk - 1
+        else:
+            j = torch.full((len(rows),), v // 2 - 1, device="cuda")
+        lg[rows, j] = lg[rows, j + 1] = top[rows]
+        want[rows] = j
+        rows = every[1::4]
+        lg[rows, v - 1] = top[rows]
+        want[rows] = v - 1
     th = torch.rand(b, device="cuda", generator=gen)
-    return lg, th
+    return lg, th, want
 
 
-GATE_CASES = ([(b, v, torch.float32) for b in (1, 7, 256, 1024)
+#: (rows, V, dtype, offset): the logits start ``offset`` elements into a
+#: flat buffer, so offset 1 is not 16-byte aligned.  The classifier's
+#: 10 classes and 1000 (the ImageNet heads) at 1 to 1500 rows (the
+#: engine's two-chunk request), LM vocabularies (TinyLlama 32 000,
+#: DeepSeek 129 280), V = 1, each dtype at V = 10 and 32 000; each side
+#: of each route threshold is added by ``gate_cases``.
+GATE_CASES = ([(b, v, torch.float32, 0) for b in (1, 7, 256, 1024)
                for v in (10, 1000, 32000, 129280)]
-              + [(256, 1000, torch.bfloat16), (7, 129280, torch.float16)])
+              + [(256, 1000, torch.bfloat16, 0),
+                 (7, 129280, torch.float16, 0),
+                 (1, 1, torch.float32, 0), (1024, 1, torch.float32, 0),
+                 (1500, 10, torch.float32, 0)]
+              + [(b, v, dt, 0) for b, v in ((1024, 10), (256, 32000))
+                 for dt in (torch.bfloat16, torch.float16)]
+              + [(1024, 10, torch.float32, 1), (256, 1000, torch.float32, 1),
+                 (7, 32000, torch.float32, 1),
+                 (7, 32000, torch.bfloat16, 1)])
+
+
+def gate_cases(kern):
+    """GATE_CASES, and 1024 rows at the last V of each route or class of
+    the warp route (a route's unit holds another number of columns) and
+    the first V of the next, found from the C launcher's own plan."""
+    edges = []
+    unit = kern.plan(1, 1, torch.float32)[::2]
+    for v in range(2, 1 << 16):
+        u = kern.plan(1, v, torch.float32)[::2]
+        if u != unit:
+            edges += [v - 1, v]
+            unit = u
+    return GATE_CASES + [(1024, v, torch.float32, 0) for v in edges]
 
 
 def check_exit_gate(ref, kern, gen):
+    """Each case against float64 and the plain version; returns the worst
+    errors and the launch floor, back to back and behind a torch op."""
     worst = {"conf": 0.0, "entropy": 0.0, "conf_vs_exact": 0.0,
              "entropy_vs_exact": 0.0}
-    for b, v, dtype in GATE_CASES:
-        lg, th = gate_inputs(b, v, gen)
-        lg = lg.to(dtype)         # the plain version upcasts the same
-        planted = torch.arange(b, device="cuda") % 3 == 1
-        th = torch.where(planted, ref.ref_exit_gate(lg, th)[0], th)
+    # an empty kernel timed as the gate is: what any one launch costs
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0))
+    floor = {"launch_floor_ms": floor_ms,
+             "floor_after_op_ms": after_op_ms(lambda: torch.cuda._sleep(0))}
+    emit(phase="kernels", kernel="launch_floor", **floor)
+    routes = set()
+    for b, v, dtype, offset in gate_cases(kern):
+        route, _, chunk = kern.plan(b, v, dtype)
+        routes.add(route)
+        x, th, planted = gate_inputs(b, v, gen, chunk)
+        buf = torch.empty(b * v + offset, dtype=dtype, device="cuda")
+        lg = buf[offset:].view(b, v)
+        lg.copy_(x)               # the plain version upcasts the same
+        check((lg.data_ptr() % 16 != 0) == bool(offset),
+              f"exit_gate case {(b, v, offset)} not aligned as meant")
+        planted_th = torch.arange(b, device="cuda") % 3 == 1
+        th = torch.where(planted_th, ref.ref_exit_gate(lg, th)[0], th)
         want = ref.ref_exit_gate(lg, th)
         got = kern.exit_gate_cuda(lg, th)
         torch.cuda.synchronize()
@@ -255,26 +342,35 @@ def check_exit_gate(ref, kern, gen):
             check(bool((gap <= CONF_TOL + own).all()),
                   f"exit_gate {name} off the plain version at {(b, v)}")
         check(torch.equal(got[2], want[2]),
-              f"exit_gate pred differs at {(b, v)}")
-        check(bool((got[2][::2] < v // 2).all()),
-              "exit_gate tie not resolved to the lowest index")
+              f"exit_gate pred differs at {(b, v, dtype, offset)}")
+        rows = planted >= 0
+        check(torch.equal(got[2][rows].long(), planted[rows]),
+              f"exit_gate planted tie or last-column max missed at "
+              f"{(b, v, dtype, offset)}")
         edge = (want[0] - th).abs() < EDGE
-        check(int(edge.sum()) >= int(planted.sum()),
+        check(int(edge.sum()) >= int(planted_th.sum()),
               "planted tau' == conf rows not counted as edge rows")
         check(torch.equal(got[3][~edge], want[3][~edge]),
               f"exit_gate fire differs outside edge rows at {(b, v)}")
-        check(not bool(got[3][planted & (got[0] == th)].any()),
+        check(not bool(got[3][planted_th & (got[0] == th)].any()),
               "exit_gate fires at conf == tau'")
         ms = time_ms(lambda: kern.exit_gate_cuda(lg, th))
         plain_ms = time_ms(lambda: ref.ref_exit_gate(lg, th))
+        # (conf, pred) in one call; entropy and fire are not in it
+        lib_ms = time_ms(lambda: torch.softmax(lg.float(), -1).max(-1))
         bms, by = gate_bound(b, v, lg.element_size())
         emit(phase="kernels", kernel="exit_gate", shape=[b, v],
-             dtype=str(dtype).removeprefix("torch."),
-             edge_rows=int(edge.sum()), ms=ms, plain_ms=plain_ms,
-             bound_ms=bms, bound_by=by, **errs)
+             dtype=str(dtype).removeprefix("torch."), offset=offset,
+             route=route, columns=chunk, edge_rows=int(edge.sum()), ms=ms,
+             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+             bound_by=by, bound_fraction=bms / ms,
+             launch_floor_ms=floor_ms, **errs)
         for key in worst:
             worst[key] = max(worst[key], errs[key])
-    return worst
+    check(routes == set(kern.ROUTES),
+          f"exit_gate cases took routes {sorted(routes)}, not all of "
+          f"{kern.ROUTES}")
+    return worst, floor
 
 
 def check_softmax_confidence(gen):
@@ -968,7 +1064,7 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0, library=str(lib))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    gate_err = check_exit_gate(gref, gkern, gen)
+    gate_err, gate_floor = check_exit_gate(gref, gkern, gen)
     softmax_err = check_softmax_confidence(gen)
     diff_err = check_difficulty(dref, dkern, gen, DEFAULT)
     head_err, head_main = check_exit_head(href, hkern, gen)
@@ -980,12 +1076,13 @@ def main() -> int:
     lm = lm_serving()
 
     # main-path shapes: one 1024-row bucket, 10 classes / 32x32x3 images
-    lg, th = gate_inputs(1024, 10, gen)
+    lg, th, _ = gate_inputs(1024, 10, gen, 10)
     img = torch.rand(1024, 32, 32, 3, device="cuda", generator=gen)
     kw = dict(tau_edge=DEFAULT.tau_edge, var_scale=DEFAULT.var_scale,
               grad_scale=DEFAULT.grad_scale, w1=DEFAULT.w_edge,
               w2=DEFAULT.w_variance, w3=DEFAULT.w_gradient)
     gate_b, gate_by = gate_bound(1024, 10, 4)
+    gate_ms = time_ms(lambda: gkern.exit_gate_cuda(lg, th))
     diff_b, diff_by = difficulty_bound(1024, 32, 32, 3)
     diff_ms = time_ms(lambda: dkern.difficulty_cuda(img, **kw))
     summary = {"kernels": [
@@ -995,12 +1092,17 @@ def main() -> int:
          "launches": vgg["exit_gate"],
          "max_abs_err": max(gate_err["conf"], gate_err["entropy"],
                             softmax_err),
-         "ms": time_ms(lambda: gkern.exit_gate_cuda(lg, th)),
+         "ms": gate_ms,
          "plain_ms": time_ms(lambda: gref.ref_exit_gate(lg, th)),
          "bound_ms": gate_b, "bound_by": gate_by,
+         "bound_fraction": gate_b / gate_ms,
          # (conf, pred) in one call; entropy and fire are not in it
          "library_ms": time_ms(lambda: torch.softmax(lg.float(), -1).max(-1)),
-         "shape": [1024, 10]},
+         # "route" is the contract's cuda / triton; the launcher's route
+         "gate_route": gkern.plan(1024, 10, torch.float32)[0],
+         # the gate as the engine calls it, behind a torch kernel
+         "after_op_ms": after_op_ms(lambda: gkern.exit_gate_cuda(lg, th)),
+         **gate_floor, "shape": [1024, 10]},
         {"name": "difficulty", "route": "cuda",
          "source": "src/repro_torch/csrc/difficulty.cu",
          "replaces": "src/repro/kernels/difficulty/difficulty_kernel.py:86",

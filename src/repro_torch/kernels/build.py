@@ -33,7 +33,8 @@ _L = ctypes.c_int64
 
 #: C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
-    "exit_gate_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "exit_gate_plan": [_I, _I, _I, _P],
+    "exit_gate_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "difficulty_launch": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                           _P],
     "exit_head_plan": [_I, _I, _I, _I, _P],

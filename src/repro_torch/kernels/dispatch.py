@@ -61,9 +61,7 @@ def exit_gate(logits: torch.Tensor, thresholds: torch.Tensor):
 def softmax_confidence(logits: torch.Tensor):
     """(conf, pred) over (..., V) — the gate without a threshold."""
     if _on_cpu(logits, "softmax_confidence"):
-        lf = logits.float()
-        return (torch.softmax(lf, dim=-1).amax(dim=-1),
-                lf.argmax(dim=-1).to(torch.int32))
+        return _gate_ref.ref_softmax_confidence(logits)
     lead = logits.shape[:-1]
     flat = logits.reshape(-1, logits.shape[-1]).contiguous()
     ones = torch.ones(flat.shape[0], dtype=torch.float32,

@@ -83,7 +83,8 @@ def _check_gate(port, want, th, planted):
     assert not port[3].numpy()[planted].any()
 
 
-GATE_SHAPES = [(b, v) for b in (1, 7, 64) for v in (10, 1000, 4099)]
+GATE_SHAPES = ([(b, v) for b in (1, 7, 64) for v in (10, 1000, 4099)]
+               + [(1, 32000), (3, 129280)])           # LM vocabularies
 
 
 @pytest.mark.parametrize("b,v", GATE_SHAPES)
@@ -108,6 +109,120 @@ def test_exit_gate_plain_matches_pallas_interpret(b, v, block_b):
     got = exit_gate_pallas(jnp.asarray(lg_p), jnp.asarray(th_p),
                            block_b=block_b, interpret=True)
     _check_gate(port, [np.asarray(g)[:b] for g in got], th, planted)
+
+
+def _split_gate(lg, width, head):
+    """conf, entropy and pred of the CUDA gate's split route, its
+    arithmetic emulated in fp32 numpy: chunks of 256 threads x 4 vectors
+    of ``width`` values; in each chunk ``head`` scalar columns (a row
+    that is not 16-byte aligned) go to threads 0.., vector q to thread
+    q % 256, the tail to threads 0..; a thread sums its terms in column
+    order, a warp by a butterfly, the 8 warps in order; a warp per row
+    merges the partials (the row max, then each chunk's sums rescaled).
+    e^d is taken as 2^(d log2 e), as the kernel does."""
+    b, v = lg.shape
+    f32 = np.float32
+    g, k = 256, 4
+    chunk = g * k * width
+    chunks = -(-v // chunk)
+    parts = []
+    for c in range(chunks):
+        x = lg[:, c * chunk:(c + 1) * chunk]
+        n = x.shape[1]
+        h = min(head, n)
+        nvec = (n - h) // width
+        cols = np.full((g, k * width + 2), -1)   # each thread's columns
+        cols[:h, 0] = np.arange(h)
+        for q in range(nvec):
+            t, kk = q % g, q // g
+            cols[t, 1 + kk * width:1 + (kk + 1) * width] = \
+                h + q * width + np.arange(width)
+        tail = np.arange(h + nvec * width, n)
+        cols[:len(tail), -1] = tail
+        m = x.max(axis=1)
+        idx = c * chunk + x.argmax(axis=1)
+        s = np.zeros((b, g), f32)
+        t = np.zeros((b, g), f32)
+        for j in range(cols.shape[1]):
+            live = cols[:, j] >= 0
+            d = (x[:, cols[live, j]] - m[:, None]).astype(f32)
+            e = np.exp2(d * LOG2E)
+            s[:, live] = s[:, live] + e
+            # fmaf(d, e, t): the product is exact in float64
+            t[:, live] = (d.astype(np.float64) * e + t[:, live]).astype(f32)
+        s, t = (_butterfly(a.reshape(b, g // 32, 32))[:, :, 0] for a in (s, t))
+        s_c, t_c = s[:, 0], t[:, 0]
+        for w in range(1, g // 32):
+            s_c, t_c = s_c + s[:, w], t_c + t[:, w]
+        parts.append((m, s_c, t_c, idx))
+    m = np.stack([p[0] for p in parts], 1)
+    big = m.max(axis=1)
+    idx = np.where(m == big[:, None], np.stack([p[3] for p in parts], 1),
+                   np.iinfo(np.int32).max).min(axis=1)
+    s = np.zeros((b, 32), f32)
+    t = np.zeros((b, 32), f32)
+    for c, (mc, sc, tc, _) in enumerate(parts):
+        d = (mc - big).astype(f32)
+        r = np.exp2(d * LOG2E)
+        tt = (d.astype(np.float64) * sc + tc).astype(f32)
+        s[:, c % 32] = (r.astype(np.float64) * sc + s[:, c % 32]).astype(f32)
+        t[:, c % 32] = (r.astype(np.float64) * tt + t[:, c % 32]).astype(f32)
+    s, t = (_butterfly(a[:, None, :])[:, 0, 0] for a in (s, t))
+    return f32(1) / s, (np.log(s) - t / s).astype(f32), idx
+
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _butterfly(a):
+    """A warp's xor-shuffle sum over the last axis (32 lanes), in fp32."""
+    for off in (16, 8, 4, 2, 1):
+        a = a + a[..., np.arange(32) ^ off]
+    return a
+
+
+@pytest.mark.parametrize("v,width,head", [
+    (2049, 4, 0),            # the narrowest split row: one chunk
+    (32000, 4, 0), (32000, 4, 3), (129280, 4, 0),    # f32: 8, 8, 32
+    (32000, 8, 1), (129280, 8, 0)])                  # 2-byte: 4, 16
+def test_exit_gate_split_route_matches_float64(v, width, head):
+    """The split route's chunked merge, emulated in fp32 numpy, against
+    float64 and against the plain version: conf within GATE_ATOL,
+    entropy within GATE_ATOL plus ENT_RTOL of itself, pred equal, with
+    ties across a chunk boundary and the max in the last chunk.
+
+    This checks the arithmetic scheme, not the kernel: it calls no code
+    of the port's CUDA gate, so a change to gate_partial_kernel or
+    gate_merge_kernel cannot make it fail.  The kernel itself is held to
+    float64 at these widths only on the card, by chip_smoke.py's
+    check_exit_gate.  Chunk widths are the launcher's: 4096 f32 or 8192
+    2-byte columns, so 1 to 32 chunks here; ``head`` is the scalar head
+    of a row that does not start on a 16-byte boundary."""
+    rs = np.random.RandomState(v + head)
+    chunk = 256 * 4 * width
+    lg = (rs.randn(4, v) * 4).astype(np.float32)
+    top = lg.max() + 1.0
+    j = chunk - 1 if v > chunk else v // 2 - 1
+    lg[0, j] = lg[0, j + 1] = top                # a tie across a boundary
+    lg[1, v - 1] = top                           # the max in the last chunk
+    lg[2, 5] = lg[2, v - 2] = top                # first and last chunk
+    if width == 8:                               # bf16 values, ties kept
+        lg = torch.from_numpy(lg).bfloat16().float().numpy()
+    conf, ent, pred = _split_gate(lg, width, head)
+    np.testing.assert_array_equal(pred[:3], [j, v - 1, 5])
+    x = lg.astype(np.float64)
+    d = x - x.max(axis=1, keepdims=True)
+    e = np.exp(d)
+    s64 = e.sum(axis=1)
+    ent64 = np.log(s64) - (d * e).sum(axis=1) / s64
+    np.testing.assert_allclose(conf, 1 / s64, atol=GATE_ATOL, rtol=0)
+    np.testing.assert_allclose(ent, ent64, atol=GATE_ATOL, rtol=ENT_RTOL)
+    want = ref_exit_gate(torch.from_numpy(lg), torch.ones(4))
+    np.testing.assert_allclose(conf, want[0].numpy(), atol=GATE_ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(ent, want[1].numpy(), atol=GATE_ATOL,
+                               rtol=ENT_RTOL)
+    np.testing.assert_array_equal(pred, want[2].numpy())
 
 
 DIFF_SHAPES = [(8, 8, 3), (28, 28, 1), (32, 32, 3)]
@@ -440,8 +555,8 @@ def test_build_names_every_source_and_keys_on_content():
     assert lib.parent == ROOT / "build" / "repro_torch"
     assert lib == build.library_path()
     assert set(build.SIGNATURES) == {
-        "exit_gate_launch", "difficulty_launch", "exit_head_plan",
-        "exit_head_launch", "paged_gather_launch"}
+        "exit_gate_plan", "exit_gate_launch", "difficulty_launch",
+        "exit_head_plan", "exit_head_launch", "paged_gather_launch"}
     # every C entry point is declared where its source defines it
     text = "".join(src.read_text() for src in build.sources())
     for name in build.SIGNATURES:
