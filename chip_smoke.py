@@ -47,7 +47,22 @@ Phases, each printing one JSON line:
    with the same engine on the CPU (plain torch versions).
    Each batch is served five times in each mode; samples/s is the
    median of the last four.
-5. engine  — the same for AlexNet/CIFAR-10.
+5. engine  — the same for AlexNet/CIFAR-10, and for ResNet-18/CIFAR-10
+   (basic blocks 2-2-2-2, width 64, inference batchnorm, 4 exits,
+   ~11.2 M params), whose phase first runs ``measure_costs`` and emits
+   the cumulative MACs per exit it installs.
+   policies — on the ResNet-18 engine: calibration (512 rows) and a
+   holdout (512 rows at offset 1024); ``static``, ``branchynet``,
+   ``rl_agent`` and ``joint_dp`` fitted on the calibration rows and the
+   holdout routed with ``route_policy``; per method the exit histogram,
+   mean normalised MACs, accuracy and ``daes.summary_row`` against
+   static, whose time column is the cumulative stage time at the routed
+   exit (stem, stages and exit heads timed with CUDA events at batch 64,
+   per sample; DART adds the difficulty kernel's time).  The weights are
+   random, so accuracy is chance: the rows are no Table I result.
+   Static must route every row to the last exit, and each method's
+   routed MACs must equal the mean of ``cum_costs[idx]`` counted from
+   its exit histogram.
 6. lm-strict — TinyLlama-1.1B at full width and depth in fp32 (seeded
    random weights, tau per exit from quantiles of the first step's
    conf): 40 requests of 16 new tokens over 16 slots (prompts of 16 to
@@ -627,7 +642,8 @@ def edge_rows(masked, tol):
             < tol).cpu().numpy()
 
 
-def drive_engine(cfg, name, data, offset):
+def drive_engine(cfg, name, data, offset, measure_costs=False):
+    """One engine phase; returns (launch counts, the engine)."""
     from repro_torch.convert import leaves
     from repro_torch.data.datasets import make_batch
     from repro_torch.engine import DartEngine
@@ -642,6 +658,13 @@ def drive_engine(cfg, name, data, offset):
                           split="eval")[0]
                for a, n in ((0, 1), (1, 64), (65, 256), (321, 1024),
                             (1345, 1500))]
+
+    cum_macs = None
+    if measure_costs:
+        cum_macs = eng.measure_costs((data.img_res, data.img_res,
+                                      data.channels)).tolist()
+        check(all(0 < a < b for a, b in zip(cum_macs, cum_macs[1:])),
+              f"{name}: cumulative MACs {cum_macs} not increasing")
 
     dispatch.reset_launch_counts()
     t0 = time.perf_counter()
@@ -711,8 +734,9 @@ def drive_engine(cfg, name, data, offset):
          joint_dp_tau=np.asarray(pol.tau).tolist(), launches=counts,
          edge_rows=total_edge, exit_counts=exits.tolist(),
          served=st["served"], active_strategy=st["active_strategy"],
-         mean_macs=st["mean_macs"], batches=rows, cpu_reference=cpu_check)
-    return counts
+         mean_macs=st["mean_macs"], cum_macs=cum_macs, batches=rows,
+         cpu_reference=cpu_check)
+    return counts, eng
 
 
 def check_against_cpu(cfg, params, eng, x):
@@ -735,6 +759,90 @@ def check_against_cpu(cfg, params, eng, x):
     check(err <= CPU_CONF_TOL, f"card and CPU conf differ by {err}")
     return {"rows": len(x), "edge_rows": int((~ok).sum()),
             "max_conf_err": err}
+
+
+def stage_ms(eng, img_shape, batch=64):
+    """Per-sample device ms of the stem with stage 0 and exit 0, then of
+    each later stage with its exit head (CUDA events, median of
+    blocks), and of the difficulty kernel, at ``batch`` rows."""
+    from repro_torch.kernels import dispatch
+    fam, cfg, p = eng.family, eng.cfg, eng.params
+    x = torch.rand((batch,) + tuple(img_shape), device="cuda")
+    hs = [fam.apply_stem(p, x, cfg)]
+    for s in range(eng.n_exits):
+        hs.append(fam.apply_stage(p, hs[-1], s, cfg))
+
+    def step(s):
+        h = fam.apply_stage(p, hs[s], s, cfg)
+        fam.apply_exit(p, h, s, cfg)
+
+    ms = [time_ms(lambda s=s: step(s), reps=11, block=5) / batch
+          for s in range(eng.n_exits)]
+    ms[0] += time_ms(lambda: fam.apply_stem(p, x, cfg), reps=11,
+                     block=5) / batch
+    diff = time_ms(lambda: dispatch.image_difficulty(x), reps=11,
+                   block=5) / batch
+    return np.asarray(ms), diff
+
+
+def drive_policies(eng, data, holdout_offset=1024):
+    """The four Table I methods fitted on one calibration set and routed
+    on a holdout of the same (random-weight) engine."""
+    from repro_torch.core import daes as DAES
+    from repro_torch.core import difficulty as DIFF
+    from repro_torch.engine import get_optimizer, route_policy
+
+    img = (data.img_res, data.img_res, data.channels)
+    cal = eng.collect_calibration(data, n=512, batch=64)
+    hold = eng.collect_calibration(data, n=512, batch=64,
+                                   offset=holdout_offset)
+    ms, diff_ms = stage_ms(eng, img)
+    cum_ms = np.cumsum(ms)
+    cum_macs = np.asarray(eng.cum_costs)
+    norm = cum_macs / cum_macs[-1]
+    est_macs = DIFF.estimator_flops(*img) / 2.0
+    n, e = hold.conf.shape
+    rows, meas = [], []
+    for method in ("static", "branchynet", "rl_agent", "joint_dp"):
+        t0 = time.perf_counter()
+        pol = (eng.calibrate(cal) if method == "joint_dp"
+               else get_optimizer(method)(cal, beta_opt=0.5))
+        fit_s = time.perf_counter() - t0
+        idx = route_policy(pol, hold)
+        hist = np.bincount(idx, minlength=e)
+        dart = method == "joint_dp"
+        acc = float(hold.correct[np.arange(n), idx].mean())
+        m = DAES.MethodMeasurement(
+            method, acc,
+            time_s=float(cum_ms[idx].mean() + (diff_ms if dart else 0.0))
+            / 1e3,
+            macs=float(cum_macs[idx].mean() + (est_macs if dart else 0.0)))
+        # the routed MACs against the exit histogram's own count
+        check(math.isclose(m.macs - (est_macs if dart else 0.0),
+                           float(hist @ cum_macs) / n, rel_tol=1e-9),
+              f"policies: {method} routed MACs off its histogram")
+        if method == "static":
+            check(bool((idx == e - 1).all()),
+                  "policies: static routed a row before the last exit")
+        meas.append(m)
+        rows.append({"method": method, "tau": np.asarray(pol.tau).tolist(),
+                     "beta_diff": float(pol.beta_diff),
+                     "objective": float(pol.objective), "fit_s": fit_s,
+                     "exit_counts": hist.tolist(),
+                     "mean_norm_macs": float(norm[idx].mean()),
+                     "accuracy": acc})
+    mean_alpha = float(hold.alpha.mean())
+    for r, m in zip(rows, meas):
+        r["daes_row"] = DAES.summary_row(meas[0], m, mean_alpha)
+    emit(phase="policies", model=eng.cfg.name, weights="random, seed 0",
+         note="random weights: accuracy is chance (~0.1 over 10 classes); "
+              "these rows are no Table I result",
+         calibration_rows=len(cal.conf), holdout_rows=n,
+         holdout_offset=holdout_offset, cum_macs=cum_macs.tolist(),
+         stage_ms_per_sample=ms.tolist(),
+         difficulty_ms_per_sample=diff_ms, estimator_macs=est_macs,
+         mean_alpha=mean_alpha, methods=rows)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1036,7 +1144,9 @@ def main() -> int:
         os.execve(sys.executable, [sys.executable, *sys.argv],
                   {**os.environ, "PYTHONHASHSEED": "0"})
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.paper_testbeds import ALEXNET_CIFAR, VGG16_CIFAR
+    from repro_torch.configs.paper_testbeds import (ALEXNET_CIFAR,
+                                                    RESNET18_CIFAR,
+                                                    VGG16_CIFAR)
     from repro_torch.core.difficulty import DEFAULT
     from repro_torch.data.datasets import CIFAR
     from repro_torch.kernels import build
@@ -1070,8 +1180,13 @@ def main() -> int:
     head_err, head_main = check_exit_head(href, hkern, gen)
     paged_main = check_paged_gather(pref, pkern, gen)
 
-    vgg = drive_engine(VGG16_CIFAR, "vgg16-cifar", CIFAR, offset=2000)
+    vgg, _ = drive_engine(VGG16_CIFAR, "vgg16-cifar", CIFAR, offset=2000)
     drive_engine(ALEXNET_CIFAR, "alexnet-cifar", CIFAR, offset=6000)
+    _, resnet = drive_engine(RESNET18_CIFAR, "resnet18-cifar", CIFAR,
+                             offset=7000, measure_costs=True)
+    drive_policies(resnet, CIFAR)
+    del resnet
+    torch.cuda.empty_cache()
     lm_strict()
     lm = lm_serving()
 

@@ -9,9 +9,13 @@ from HWIO to OIHW.  Linear weights keep their (in, out) layout, and the
 models flatten NHWC before a fully connected layer, so no FC row needs
 permuting.  The LM tree (``models/transformer_lm.py``: embed, layers'
 norms, attention and SwiGLU weights, final and exit-head norms, the
-untied unembedding) keeps the JAX einsum layouts and needs no transpose.
-The result is checked against the port's own init for the same config,
-leaf by leaf, so a tree of the wrong architecture raises.
+untied unembedding) keeps the JAX einsum layouts and needs no transpose;
+neither do the 1-D batchnorm leaves.  bfloat16 leaves (numpy's
+``ml_dtypes`` type) arrive as torch bfloat16.  The result is checked
+against the port's own init for the same config, leaf by leaf: shapes,
+so a tree of the wrong architecture raises, and dtypes, which are
+``cfg.param_dtype`` except for the batchnorm running statistics
+(``mean``, ``var``), kept in float32 whatever the param dtype.
 """
 from __future__ import annotations
 
@@ -45,6 +49,9 @@ def _to_port(leaf, device):
     a = np.asarray(leaf)
     if a.ndim == 4:                                   # conv HWIO -> OIHW
         a = a.transpose(3, 2, 0, 1)
+    if a.dtype.name == "bfloat16":                   # ml_dtypes: no torch twin
+        return torch.tensor(a.view(np.int16),
+                            device=device).view(torch.bfloat16)
     return torch.tensor(a, device=device)           # copies
 
 
@@ -63,6 +70,8 @@ def _check(got, want, path="params"):
     elif got.shape != want.shape:
         raise ValueError(f"{path}: shape {tuple(got.shape)} != "
                          f"{tuple(want.shape)}")
+    elif got.dtype != want.dtype:
+        raise TypeError(f"{path}: param dtype {got.dtype} != {want.dtype}")
 
 
 def from_jax_params(values_tree, cfg, device=None):
@@ -74,7 +83,4 @@ def from_jax_params(values_tree, cfg, device=None):
         _check(params, lm_init(cfg, device="meta"))
     else:
         _check(params, get_family(cfg).init(cfg, device="meta"))
-    for leaf in leaves(params):
-        if leaf.dtype != cfg.param_dtype:
-            raise TypeError(f"param dtype {leaf.dtype} != {cfg.param_dtype}")
     return params

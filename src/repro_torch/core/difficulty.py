@@ -150,3 +150,23 @@ def difficulty_class(alpha, edges=DEFAULT_EDGES):
     a = np.asarray(alpha, np.float32)
     e = np.asarray(edges, np.float32)
     return np.sum(a[..., None] > e, axis=-1).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# FLOPs of the estimator (paper section III.B overhead comparison)
+# ---------------------------------------------------------------------------
+
+def estimator_flops(h: int, w: int, c: int = 3) -> int:
+    """Per-image FLOPs of the difficulty estimator (conv MACs x2 +
+    pointwise), counted as the JAX package counts them.
+
+    Paper reports 78.9 KFLOPs for its configuration; RACENet-style adaptive
+    normalization costs 3.96 MFLOPs (50.3x more)."""
+    gray = h * w * (2 * c - 1) if c == 3 else h * w * c
+    hv, wv = h - 2, w - 2
+    sobel = 2 * hv * wv * 9 * 2            # two 3x3 convs
+    mag = hv * wv * 3                      # square, add, sqrt
+    edge_thresh = hv * wv + hv * wv        # compare + mean
+    var = 4 * h * w * c                    # mean + centered square + mean
+    lap = hv * wv * 9 * 2 + 2 * hv * wv    # conv + |.| + mean
+    return int(gray + sobel + mag + edge_thresh + var + lap + 16)

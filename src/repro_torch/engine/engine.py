@@ -46,6 +46,7 @@ from repro_torch.engine.compactor import BatchCompactor
 from repro_torch.engine.state import EngineState
 from repro_torch.kernels import dispatch as KD
 from repro_torch.models import get_family
+from repro_torch.models import layers as L
 
 
 class DartEngine:
@@ -126,6 +127,32 @@ class DartEngine:
 
     def _forward(self, x):
         return self.family.forward(self.params, x, self.cfg)
+
+    # ------------------------------------------------------------------
+    # cost measurement
+    # ------------------------------------------------------------------
+    def measure_costs(self, img_shape) -> np.ndarray:
+        """Cumulative MACs per exit for one image of ``img_shape`` (H, W,
+        C), counted by ``layers.count_macs`` as XLA's cost analysis counts
+        them in the JAX engine: convolution taps inside the unpadded
+        input and linear products, for the stages up to exit s plus exit
+        s's own head (the stem is not counted).  Installs the result as
+        ``self.cum_costs``."""
+        if not self.family.staged:
+            raise ValueError("measure_costs needs a staged family")
+        fam, cfg = self.family, self.cfg
+        h = fam.apply_stem(self.params, torch.zeros(
+            (1,) + tuple(img_shape), device=self.device), cfg)
+        cum, total = [], 0
+        for s in range(self.n_exits):
+            with L.count_macs() as stage:
+                h = fam.apply_stage(self.params, h, s, cfg)
+            total += stage.macs
+            with L.count_macs() as head:
+                fam.apply_exit(self.params, h, s, cfg)
+            cum.append(total + head.macs)
+        self.cum_costs = np.asarray(cum, float)
+        return self.cum_costs
 
     # ------------------------------------------------------------------
     # section II.B — calibration / policy fitting

@@ -2,16 +2,19 @@
 
 ``FAMILIES[family]`` exposes ``init(cfg, seed=, device=)``, ``forward``
 (all exits) and the stem/stage/exit functions the DART serving engine
-drives.  This slice carries the paper's AlexNet and VGG testbeds.
+drives; ``staged`` says whether a family has them.  This slice carries
+the paper's AlexNet, VGG and ResNet testbeds.
 """
 from __future__ import annotations
 
-from repro_torch.models import cnn_zoo
+from repro_torch.models import cnn_zoo, resnet
 from repro_torch.models.cnn_zoo import AlexNetConfig, VGGConfig
+from repro_torch.models.resnet import ResNetConfig
 
 
 class _Family:
-    def __init__(self, init, forward, *, stem, stage, exit_, n_stages):
+    def __init__(self, init, forward, *, stem=None, stage=None, exit_=None,
+                 n_stages=None):
         self.init = init
         self.forward = forward
         self.apply_stem = stem
@@ -19,8 +22,15 @@ class _Family:
         self.apply_exit = exit_
         self.num_stages = n_stages
 
+    @property
+    def staged(self) -> bool:
+        return self.apply_stage is not None
+
 
 FAMILIES = {
+    "resnet": _Family(resnet.resnet_init, resnet.resnet_forward,
+                      stem=resnet.apply_stem, stage=resnet.apply_stage,
+                      exit_=resnet.apply_exit, n_stages=resnet.num_stages),
     "alexnet": _Family(cnn_zoo.alexnet_init, cnn_zoo.alexnet_forward,
                        stem=cnn_zoo.alexnet_apply_stem,
                        stage=cnn_zoo.alexnet_apply_stage,
@@ -35,12 +45,13 @@ FAMILIES = {
 
 
 def family_of(cfg) -> str:
-    return {AlexNetConfig: "alexnet", VGGConfig: "vgg"}[type(cfg)]
+    return {ResNetConfig: "resnet", AlexNetConfig: "alexnet",
+            VGGConfig: "vgg"}[type(cfg)]
 
 
 def get_family(cfg) -> _Family:
     return FAMILIES[family_of(cfg)]
 
 
-__all__ = ["cnn_zoo", "AlexNetConfig", "VGGConfig", "FAMILIES", "family_of",
-           "get_family"]
+__all__ = ["cnn_zoo", "resnet", "AlexNetConfig", "VGGConfig",
+           "ResNetConfig", "FAMILIES", "family_of", "get_family"]

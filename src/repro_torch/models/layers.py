@@ -13,6 +13,12 @@ Init draws from an explicit ``torch.Generator``: He-normal convolutions
 and truncated-normal (std 0.02, cut at 2 std) linears, the same
 distributions as the JAX init, not the same numbers.
 
+``count_macs()`` counts the multiply-accumulates of ``conv2d`` and
+``linear`` inside its scope.  A convolution counts only the kernel taps
+that land inside its unpadded input, as XLA's cost analysis does, so
+the SAME padding adds nothing (a counter at the ``aten.convolution``
+level would see ``F.pad``'s zeros as image).
+
 The LM subset keeps the JAX package's layouts and roundings: rmsnorm in
 fp32 with eps 1e-6 and a cast back; the half-split ("llama") rope with
 cos/sin in fp32; attention scores in the input dtype, then fp32 with a
@@ -23,6 +29,8 @@ callers here own the tensors they pass).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
 
@@ -53,7 +61,36 @@ def linear_init(generator, in_dim, out_dim, *, device,
             "b": torch.zeros(out_dim, device=device, dtype=dtype)}
 
 
+class MacCount:
+    """Multiply-accumulates reported by ``conv2d`` and ``linear``."""
+
+    def __init__(self):
+        self.macs = 0
+
+
+_COUNTER: contextvars.ContextVar[MacCount | None] = contextvars.ContextVar(
+    "repro_torch_mac_count", default=None)
+
+
+@contextlib.contextmanager
+def count_macs():
+    """``with count_macs() as c: ...`` -- ``c.macs`` after the block."""
+    c = MacCount()
+    token = _COUNTER.set(c)
+    try:
+        yield c
+    finally:
+        _COUNTER.reset(token)
+
+
+def _report(macs: int) -> None:
+    c = _COUNTER.get()
+    if c is not None:
+        c.macs += macs
+
+
 def linear(p, x):
+    _report(x.numel() * p["w"].shape[1])
     y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
@@ -61,11 +98,14 @@ def linear(p, x):
 
 
 def conv_init(generator, kh, kw, cin, cout, *, device,
-              dtype=torch.float32):
-    """{"w": (cout, cin, kh, kw), "b": (cout,)}, He-normal."""
-    return {"w": he_normal((cout, cin, kh, kw), generator, kh * kw * cin,
-                           device=device, dtype=dtype),
-            "b": torch.zeros(cout, device=device, dtype=dtype)}
+              dtype=torch.float32, bias=True):
+    """{"w": (cout, cin, kh, kw), "b": (cout,)}, He-normal; no "b" when
+    ``bias`` is false."""
+    p = {"w": he_normal((cout, cin, kh, kw), generator, kh * kw * cin,
+                        device=device, dtype=dtype)}
+    if bias:
+        p["b"] = torch.zeros(cout, device=device, dtype=dtype)
+    return p
 
 
 def same_pads(size: int, window: int, stride: int) -> tuple[int, int]:
@@ -85,11 +125,22 @@ def _pad_same(x, kh, kw, stride, value=0.0):
     return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), (0, 0)
 
 
+def _taps(size: int, window: int, stride: int) -> int:
+    """Taps of a SAME window along one axis that land inside the input,
+    summed over the output positions."""
+    lo = same_pads(size, window, stride)[0]
+    return sum(max(min(o * stride - lo + window, size)
+                   - max(o * stride - lo, 0), 0)
+               for o in range(-(-size // stride)))
+
+
 def conv2d(p, x, *, stride=1):
-    """NCHW convolution with JAX's SAME padding."""
-    kh, kw = p["w"].shape[2:]
+    """NCHW convolution with JAX's SAME padding; ``p["b"]`` optional."""
+    cout, cin, kh, kw = p["w"].shape
+    _report(x.shape[0] * _taps(x.shape[2], kh, stride)
+            * _taps(x.shape[3], kw, stride) * cin * cout)
     x, pad = _pad_same(x, kh, kw, stride)
-    return F.conv2d(x, p["w"], p["b"], stride=stride, padding=pad)
+    return F.conv2d(x, p["w"], p.get("b"), stride=stride, padding=pad)
 
 
 def max_pool(x, window, stride):

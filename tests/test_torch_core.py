@@ -1,6 +1,7 @@
 """The port's paper math against the JAX package on the same numpy
 inputs: thresholds (Eqs. 10, 12, 19, Alg. 1), routing, the section II.C
-adaptation and the section II.B policy solvers."""
+adaptation, the section II.B policy solvers, the Table I baselines with
+``route_policy``, DAES and the estimator's FLOP count."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -8,14 +9,19 @@ import pytest
 import torch
 
 from repro.core import adaptive as jAD
+from repro.core import daes as jDAES
+from repro.core import difficulty as jDIFF
 from repro.core import policy as jPOL
 from repro.core import routing as jR
 from repro.core import thresholds as jTH
+from repro.engine import registry as jREG
 from repro_torch.core import adaptive as AD
+from repro_torch.core import daes as DAES
 from repro_torch.core import difficulty as DIFF
 from repro_torch.core import policy as POL
 from repro_torch.core import routing as R
 from repro_torch.core import thresholds as TH
+from repro_torch.engine import registry as REG
 
 # tiny tensors: one thread is faster than torch's pool, and leaves the
 # cores to the JAX side and to other test workers
@@ -205,3 +211,81 @@ def test_difficulty_class_host_and_tensor_agree():
     np.testing.assert_array_equal(DIFF.difficulty_class(a), [0, 0, 1, 1, 2, 2])
     np.testing.assert_array_equal(DIFF.difficulty_class(_t(a)).numpy(),
                                   DIFF.difficulty_class(a))
+
+
+def _calib_data(mk, seed, entropy, n=256, e=4):
+    """One seeded calibration set for either package; with ``entropy``
+    an entropy matrix that falls as confidence rises, plus noise."""
+    conf, correct, alpha, cum = _calib(n=n, e=e, seed=seed)
+    ent = None
+    if entropy:
+        rs = np.random.RandomState(seed + 100)
+        ent = -np.log(conf) + 0.3 * rs.uniform(0, 1, conf.shape)
+    return mk(conf, correct, alpha, cum, labels=np.arange(n) % 10,
+              entropy=ent)
+
+
+# the baselines are numpy on both sides (the Eq. 19 projection through
+# each package's float32 simulate_routing): equal to the last bit
+@pytest.mark.parametrize("entropy", [True, False])
+@pytest.mark.parametrize("name", ["static", "branchynet", "rl_agent"])
+def test_table1_baselines_match_jax(name, entropy):
+    got = REG.get_optimizer(name)(
+        _calib_data(POL.CalibrationData, 30, entropy), beta_opt=0.4)
+    want = jREG.get_optimizer(name)(
+        _calib_data(jPOL.CalibrationData, 30, entropy), beta_opt=0.4)
+    for k in ("tau", "coef"):
+        np.testing.assert_allclose(getattr(got, k), getattr(want, k),
+                                   atol=1e-12, rtol=0, err_msg=k)
+    assert got.beta_diff == want.beta_diff
+    assert got.method == want.method == name
+    np.testing.assert_allclose(got.objective, want.objective, atol=1e-12,
+                               rtol=0)
+    if name == "rl_agent":
+        np.testing.assert_array_equal(got.diagnostics["policy"].q,
+                                      want.diagnostics["policy"].q)
+    # a holdout of another seed, with and without entropy: the native
+    # router (and the Eq. 19 projection where entropy is missing)
+    for ent in (True, False):
+        idx = REG.route_policy(got, _calib_data(POL.CalibrationData, 31,
+                                                ent))
+        jidx = jREG.route_policy(want, _calib_data(jPOL.CalibrationData,
+                                                   31, ent))
+        np.testing.assert_array_equal(idx, jidx)
+        if name == "static":
+            assert (idx == 3).all()
+        else:
+            assert len(np.unique(idx)) >= 2
+
+
+def test_route_policy_without_router_matches_jax():
+    data = (_calib_data(POL.CalibrationData, 32, False),
+            _calib_data(jPOL.CalibrationData, 32, False))
+    got = POL.optimize_joint_dp(data[0], beta_opt=0.5)
+    want = jPOL.optimize_joint_dp(data[1], beta_opt=0.5)
+    hold = (_calib_data(POL.CalibrationData, 33, False),
+            _calib_data(jPOL.CalibrationData, 33, False))
+    np.testing.assert_array_equal(REG.route_policy(got, hold[0]),
+                                  jREG.route_policy(want, hold[1]))
+
+
+def test_daes_and_estimator_flops_match_jax():
+    rows = [("static", 0.61, 0.0042, 4.8e8), ("dart", 0.58, 0.0021, 2.1e8),
+            ("rl", 0.55, 0.0030, 3.3e8)]
+    for energy in ("macs", "measured"):
+        ms = [DAES.MethodMeasurement(n, a, t, m, energy_j=3 * t)
+              for n, a, t, m in rows]
+        jms = [jDAES.MethodMeasurement(n, a, t, m, energy_j=3 * t)
+               for n, a, t, m in rows]
+        for m, jm in zip(ms, jms):
+            assert DAES.summary_row(ms[0], m, 0.85, energy) == \
+                jDAES.summary_row(jms[0], jm, 0.85, energy)
+    acc, jacc = DAES.LaneDaesAccumulator(5.0), jDAES.LaneDaesAccumulator(5.0)
+    rs = np.random.RandomState(4)
+    for lane in (0, 1, 0, 2):
+        c, m, a = rs.uniform(0, 1, (3, 8))
+        acc.observe(lane, c, 5 * m, a)
+        jacc.observe(lane, c, 5 * m, a)
+    assert acc.rows() == jacc.rows()
+    for shape in ((32, 32, 3), (28, 28, 1)):
+        assert DIFF.estimator_flops(*shape) == jDIFF.estimator_flops(*shape)

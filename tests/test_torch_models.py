@@ -1,7 +1,8 @@
 """The port's testbed CNNs against the JAX package with converted
-weights: SAME convolution and max-pooling, and the staged AlexNet and VGG
-per stage and per exit.  Pins the padding / pooling / flatten hazards of
-the port."""
+weights: SAME convolution and max-pooling, inference batchnorm, and the
+staged AlexNet, VGG and ResNet per stage and per exit.  Pins the padding
+/ pooling / flatten hazards of the port, and the MAC count of its
+convolutions."""
 import dataclasses
 
 import jax
@@ -11,11 +12,13 @@ import pytest
 import torch
 
 from repro.configs import paper_testbeds as jTB
+from repro.models import batchnorm as jBN
 from repro.models import get_family as jget_family
 from repro.models import layers as jL
 from repro.parallel.sharding import unzip
 from repro_torch import convert
 from repro_torch.configs import paper_testbeds as TB
+from repro_torch.models import batchnorm as BN
 from repro_torch.models import cnn_zoo
 from repro_torch.models import get_family
 from repro_torch.models import layers as L
@@ -53,6 +56,62 @@ def test_conv2d_same_matches_jax(hw, k, stride):
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("hw,k,stride", [
+    (8, 3, 1), (8, 3, 2), (7, 3, 2), (9, 5, 1), (6, 1, 2), (5, 3, 3),
+    (32, 7, 2), (29, 7, 2)])
+def test_conv2d_mac_count_is_the_taps_inside_the_image(hw, k, stride):
+    """With ones for image and kernel, each output sums the taps that
+    land inside the unpadded image: their total over the outputs is the
+    count ``count_macs`` must give, padding excluded."""
+    x = torch.ones(2, 3, hw, hw + 1)
+    p = {"w": torch.ones(4, 3, k, k)}
+    with L.count_macs() as c:
+        y = L.conv2d(p, x, stride=stride)
+    assert c.macs == int(y.sum())
+    with L.count_macs() as c:
+        L.linear({"w": torch.ones(5, 7), "b": torch.ones(7)},
+                 torch.ones(2, 3, 5))
+    assert c.macs == 2 * 3 * 5 * 7
+    L.conv2d(p, x, stride=stride)                   # no scope: no count
+    assert c.macs == 2 * 3 * 5 * 7
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_bn_apply_matches_jax(dtype):
+    """Inference batchnorm with planted statistics (init's mean 0 and var
+    1 would hide a swapped or transposed statistic), NCHW against JAX's
+    NHWC; the train mode is not ported and raises."""
+    rs = np.random.RandomState(2)
+    c = 6
+    p = {"scale": rs.uniform(0.5, 1.5, c), "bias": rs.randn(c),
+         "mean": rs.randn(c), "var": rs.uniform(0.2, 3.0, c)}
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    x = (3 * rs.randn(2, 5, 7, c) + 1).astype(np.float32)
+    jp = dict(p)
+    if dtype == "bfloat16":
+        jp["scale"] = jnp.asarray(p["scale"], jnp.bfloat16)
+        jp["bias"] = jnp.asarray(p["bias"], jnp.bfloat16)
+        jx = jnp.asarray(x, jnp.bfloat16)
+    else:
+        jx = jnp.asarray(x)
+    want = np.asarray(jBN.bn_apply(jp, jx, train=False), np.float32)
+    tp = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in
+          jp.items()}
+    tx = _nchw(np.asarray(jx, np.float32))
+    if dtype == "bfloat16":
+        tp["scale"], tp["bias"] = (tp["scale"].bfloat16(),
+                                   tp["bias"].bfloat16())
+        tx = tx.bfloat16()
+    got = BN.bn_apply(tp, tx)
+    assert got.dtype == tx.dtype
+    # f32: one rounding apart; bf16: the same f32 value cast to bf16
+    tol = (1e-6, 1e-6) if dtype == np.float32 else (8e-3, 8e-3)
+    np.testing.assert_allclose(_nhwc(got.float()), want, rtol=tol[0],
+                               atol=tol[1])
+    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+        BN.bn_apply(tp, tx, train=True)
+
+
 @pytest.mark.parametrize("hw,expect", [(28, 14), (14, 7), (7, 4), (5, 3),
                                        (1, 1)])
 def test_max_pool_same_rounds_up_like_jax(hw, expect):
@@ -81,15 +140,39 @@ def alexnet_tiny_jax_init():
     return _jax_params(jTB.ALEXNET_TINY)
 
 
+def _plant_bn(tree, rs):
+    """Random batchnorm scale, bias, mean and var (> 0) in a JAX-layout
+    value tree, in place; trees without batchnorm are left as they are."""
+    if isinstance(tree, dict) and set(tree) == {"scale", "bias", "mean",
+                                                "var"}:
+        c = tree["mean"].shape[0]
+        tree.update(scale=rs.uniform(0.5, 1.5, c), bias=0.2 * rs.randn(c),
+                    mean=0.2 * rs.randn(c), var=rs.uniform(0.5, 2.0, c))
+        for k in tree:
+            tree[k] = tree[k].astype(np.float32)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _plant_bn(v, rs)
+    elif isinstance(tree, list):
+        for v in tree:
+            _plant_bn(v, rs)
+    return tree
+
+
 def _pair(jcfg, cfg, values=None):
     if values is None:
-        values = _jax_layout(get_family(cfg).init(cfg, seed=1, device="cpu"))
+        values = _plant_bn(_jax_layout(
+            get_family(cfg).init(cfg, seed=1, device="cpu")),
+            np.random.RandomState(9))
     return values, convert.from_jax_params(values, cfg, device="cpu")
 
 
 TINY_VGG = dict(blocks=((8, 1), (16, 1), (16, 1), (32, 1), (32, 1)),
                 fc_dim=32)
 MNIST_NARROW = dict(channels=(8, 16, 24, 16, 16), fc_dims=(32, 16))
+RESNET_BASIC = dict(depths=(1, 1, 1, 1), width=8)
+RESNET_BOTTLENECK = dict(name="resnet-bottleneck", depths=(1, 1, 1, 1),
+                         width=4, block="bottleneck", small_input=False)
 
 CASES = {
     "alexnet-tiny": (jTB.ALEXNET_TINY, TB.ALEXNET_TINY),
@@ -98,6 +181,15 @@ CASES = {
     "vgg-narrow": (dataclasses.replace(jTB.VGG16_CIFAR, **TINY_VGG),
                    dataclasses.replace(TB.VGG16_CIFAR, **TINY_VGG)),
 }
+# basic blocks with the 3x3 small-input stem; bottleneck blocks with the
+# 7x7 stride-2 stem and the 3/2 max pool; each at an even and an odd
+# size (the stride-2 convolutions pad at the end only, or on both sides)
+for _name, _kw in (("resnet-basic", RESNET_BASIC),
+                   ("resnet-bottleneck", RESNET_BOTTLENECK)):
+    for _res in (32, 29):
+        CASES[f"{_name}-{_res}"] = tuple(
+            dataclasses.replace(tb.RESNET18_CIFAR, img_res=_res, **_kw)
+            for tb in (jTB, TB))
 
 
 def _images(cfg, b=3, seed=0):
@@ -180,3 +272,38 @@ def test_init_matches_jax_shapes_and_distributions(alexnet_tiny_jax_init):
     assert float(params["conv1"]["b"].abs().sum()) == 0.0
     again = get_family(cfg).init(cfg, seed=3, device="cpu")
     assert torch.equal(again["conv1"]["w"], params["conv1"]["w"])
+
+
+def test_convert_bf16_resnet_keeps_batchnorm_statistics_in_float32():
+    """The JAX init of a bf16 ResNet (its own keys, shapes and dtypes:
+    bias-free convolutions, bf16 weights, float32 running statistics)
+    converts leaf for leaf; statistics in bf16, or a weight in float32,
+    raise."""
+    jcfg = dataclasses.replace(jTB.RESNET18_CIFAR, param_dtype=jnp.bfloat16,
+                               **RESNET_BASIC)
+    cfg = dataclasses.replace(TB.RESNET18_CIFAR, param_dtype=torch.bfloat16,
+                              **RESNET_BASIC)
+    values = _jax_params(jcfg)
+    params = convert.from_jax_params(values, cfg, device="cpu")
+    bns = [params["stem"]["bn"]] + [b[k] for st in params["stages"]
+                                    for b in st for k in b if "bn" in k]
+    assert len(bns) == 1 + 4 * 2 + 3          # stem, 2 a block, 3 downs
+    for bn in bns:
+        assert bn["mean"].dtype == bn["var"].dtype == torch.float32
+        assert bn["scale"].dtype == bn["bias"].dtype == torch.bfloat16
+    assert "b" not in params["stem"]["conv"]
+    assert params["stem"]["conv"]["w"].dtype == torch.bfloat16
+    for got, want in zip(convert.leaves(params), jax.tree.leaves(values)):
+        want = np.asarray(want, np.float32)
+        if want.ndim == 4:
+            want = want.transpose(3, 2, 0, 1)
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    bad = jax.tree.map(lambda a: a, values)
+    bad["stem"]["bn"]["var"] = np.asarray(values["stem"]["bn"]["var"],
+                                          jnp.bfloat16)
+    with pytest.raises(TypeError, match=r"\['var'\]: param dtype"):
+        convert.from_jax_params(bad, cfg, device="cpu")
+    bad = jax.tree.map(lambda a: a, values)
+    bad["head"]["w"] = np.asarray(values["head"]["w"], np.float32)
+    with pytest.raises(TypeError, match="param dtype"):
+        convert.from_jax_params(bad, cfg, device="cpu")
