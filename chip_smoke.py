@@ -46,7 +46,9 @@ Phases, each printing one JSON line:
    must be exactly what the path implies, and a small batch must agree
    with the same engine on the CPU (plain torch versions).
    Each batch is served five times in each mode; samples/s is the
-   median of the last four.
+   median of the last four.  Then one row is served masked ten times
+   with a ``count_macs`` scope open and ten times closed, alternated:
+   what the MAC count costs the serving path when it is on.
 5. engine  — the same for AlexNet/CIFAR-10, and for ResNet-18/CIFAR-10
    (basic blocks 2-2-2-2, width 64, inference batchnorm, 4 exits,
    ~11.2 M params), whose phase first runs ``measure_costs`` and emits
@@ -60,9 +62,13 @@ Phases, each printing one JSON line:
    exit (stem, stages and exit heads timed with CUDA events at batch 64,
    per sample; DART adds the difficulty kernel's time).  The weights are
    random, so accuracy is chance: the rows are no Table I result.
-   Static must route every row to the last exit, and each method's
-   routed MACs must equal the mean of ``cum_costs[idx]`` counted from
-   its exit histogram.
+   The installed cumulative MACs and each method's routed MACs must
+   agree to 1 % with XLA's count of ResNet-18 (``RESNET18_XLA_CUM_MACS``);
+   static must route every row to the last exit; and the holdout served
+   on the card under joint_dp's policy, and under that policy with tau
+   at each exit's calibration median (masked and compacted, no
+   adaptation), must leave at ``route_policy``'s exits outside rows at a
+   gate's edge.
 6. lm-strict — TinyLlama-1.1B at full width and depth in fp32 (seeded
    random weights, tau per exit from quantiles of the first step's
    conf): 40 requests of 16 new tokens over 16 slots (prompts of 16 to
@@ -119,6 +125,14 @@ EDGE = 1e-5           # |conf - tau'| below this may flip the strict `>`
 ALPHA_TOL = 1e-6      # alpha_var / alpha_grad: fp32 means
 CPU_EDGE = 1e-4       # card vs CPU: convolutions by other algorithms
 CPU_CONF_TOL = 1e-4
+
+#: RESNET18_CIFAR's cumulative MACs per exit as XLA's cost analysis counts
+#: them: the JAX engine's ``measure_costs((32, 32, 3))`` on the CPU, which
+#: tests/test_torch_engine.py holds the port's count against.  The card's
+#: count and each method's routed MACs must agree with it to MACS_RTOL.
+RESNET18_XLA_CUM_MACS = np.array([145720069.0, 270493381.0, 385371717.0,
+                                  482118981.0])
+MACS_RTOL = 0.01
 
 #: passes over each engine batch in each mode; all but the first timed
 PASSES = 5
@@ -721,6 +735,7 @@ def drive_engine(cfg, name, data, offset, measure_costs=False):
     check(counts["exit_gate"] > 0 and counts["difficulty"] > 0,
           f"{name}: a kernel never ran")
     check(int((exits > 0).sum()) >= 2, f"{name}: fewer than 2 exits taken")
+    counting = one_row_counting(eng, batches[0])
 
     eng.update()
     st = eng.stats()
@@ -735,8 +750,33 @@ def drive_engine(cfg, name, data, offset, measure_costs=False):
          edge_rows=total_edge, exit_counts=exits.tolist(),
          served=st["served"], active_strategy=st["active_strategy"],
          mean_macs=st["mean_macs"], cum_macs=cum_macs, batches=rows,
-         cpu_reference=cpu_check)
+         one_row_counting=counting, cpu_reference=cpu_check)
     return counts, eng
+
+
+def one_row_counting(eng, x):
+    """Masked samples/s at one row with a ``count_macs`` scope open and
+    closed, alternated in one loop: what the MAC count costs the serving
+    path when it is on (off, the layers compute no taps)."""
+    from repro_torch.models import layers as L
+
+    def per_s(counting):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if counting:
+            with L.count_macs():
+                eng.infer(x, mode="masked", record=False)
+        else:
+            eng.infer(x, mode="masked", record=False)
+        torch.cuda.synchronize()
+        return len(x) / (time.perf_counter() - t0)
+
+    on, off = [], []
+    for _ in range(2 * PASSES):
+        off.append(per_s(False))
+        on.append(per_s(True))
+    return {"off_samples_per_s": float(np.median(off[1:])),
+            "on_samples_per_s": float(np.median(on[1:]))}
 
 
 def check_against_cpu(cfg, params, eng, x):
@@ -799,6 +839,10 @@ def drive_policies(eng, data, holdout_offset=1024):
     ms, diff_ms = stage_ms(eng, img)
     cum_ms = np.cumsum(ms)
     cum_macs = np.asarray(eng.cum_costs)
+    check(np.allclose(cum_macs, RESNET18_XLA_CUM_MACS, rtol=MACS_RTOL,
+                      atol=0),
+          f"policies: cumulative MACs {cum_macs} off XLA's "
+          f"{RESNET18_XLA_CUM_MACS}")
     norm = cum_macs / cum_macs[-1]
     est_macs = DIFF.estimator_flops(*img) / 2.0
     n, e = hold.conf.shape
@@ -817,13 +861,29 @@ def drive_policies(eng, data, holdout_offset=1024):
             time_s=float(cum_ms[idx].mean() + (diff_ms if dart else 0.0))
             / 1e3,
             macs=float(cum_macs[idx].mean() + (est_macs if dart else 0.0)))
-        # the routed MACs against the exit histogram's own count
-        check(math.isclose(m.macs - (est_macs if dart else 0.0),
-                           float(hist @ cum_macs) / n, rel_tol=1e-9),
-              f"policies: {method} routed MACs off its histogram")
+        # the routed MACs against XLA's count of the same routes
+        xla = float(RESNET18_XLA_CUM_MACS[idx].mean())
+        check(math.isclose(m.macs - (est_macs if dart else 0.0), xla,
+                           rel_tol=MACS_RTOL),
+              f"policies: {method} routed MACs {m.macs} off XLA's {xla}")
         if method == "static":
             check(bool((idx == e - 1).all()),
                   "policies: static routed a row before the last exit")
+        if dart:
+            # on random weights joint_dp keeps every row to the last
+            # exit; its policy with tau at each exit's calibration median
+            # splits the rows, so the card's routing is really tested
+            mid = dataclasses.replace(pol, tau=np.array(
+                [np.median(cal.conf[:, s] - pol.beta_diff * cal.alpha)
+                 for s in range(e - 1)]))
+            mid_idx = route_policy(mid, hold)
+            check(len(np.unique(mid_idx)) >= 2,
+                  "policies: the median-tau policy took fewer than 2 exits")
+            card_route = {
+                "joint_dp": check_card_route(eng, pol, idx, data,
+                                             holdout_offset),
+                "joint_dp_median_tau": check_card_route(
+                    eng, mid, mid_idx, data, holdout_offset)}
         meas.append(m)
         rows.append({"method": method, "tau": np.asarray(pol.tau).tolist(),
                      "beta_diff": float(pol.beta_diff),
@@ -841,8 +901,35 @@ def drive_policies(eng, data, holdout_offset=1024):
          holdout_offset=holdout_offset, cum_macs=cum_macs.tolist(),
          stage_ms_per_sample=ms.tolist(),
          difficulty_ms_per_sample=diff_ms, estimator_macs=est_macs,
-         mean_alpha=mean_alpha, methods=rows)
+         mean_alpha=mean_alpha, joint_dp_card_route=card_route,
+         methods=rows)
     return rows
+
+
+def check_card_route(eng, pol, idx, data, offset, batch=64):
+    """The holdout served by an engine on the card under ``pol`` (no
+    adaptation) leaves at ``route_policy``'s exits ``idx`` in both modes,
+    outside rows at a gate's edge."""
+    from repro_torch.data.datasets import make_batch
+    from repro_torch.engine import DartEngine
+    card = DartEngine.from_config(eng.cfg, eng.params, adapt=False)
+    card.state = card.state.with_policy(tau=pol.tau, coef=pol.coef,
+                                        beta_diff=pol.beta_diff)
+    masked, comp, edge = [], [], []
+    for start in range(offset, offset + len(idx), batch):
+        x, _ = make_batch(data, range(start, start + batch), split="eval")
+        out = card.infer(x, mode="masked", record=False)
+        masked.append(out["exit_idx"].cpu().numpy())
+        edge.append(edge_rows(out, EDGE))
+        comp.append(card.infer(x, mode="compacted", record=False)["exit_idx"])
+    masked, comp, edge = map(np.concatenate, (masked, comp, edge))
+    ok = ~edge
+    check(np.array_equal(masked[ok], idx[ok]),
+          "policies: joint_dp on the card (masked) left off route_policy")
+    check(np.array_equal(comp[ok], idx[ok]),
+          "policies: joint_dp on the card (compacted) left off route_policy")
+    return {"rows": len(idx), "edge_rows": int(edge.sum()),
+            "exit_counts": np.bincount(comp, minlength=eng.n_exits).tolist()}
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,7 @@ from repro_torch.models.resnet import ResNetConfig
 
 
 class _Family:
-    def __init__(self, init, forward, *, stem=None, stage=None, exit_=None,
-                 n_stages=None):
+    def __init__(self, init, forward, *, stem, stage, exit_, n_stages):
         self.init = init
         self.forward = forward
         self.apply_stem = stem

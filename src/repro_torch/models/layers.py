@@ -83,14 +83,10 @@ def count_macs():
         _COUNTER.reset(token)
 
 
-def _report(macs: int) -> None:
+def linear(p, x):
     c = _COUNTER.get()
     if c is not None:
-        c.macs += macs
-
-
-def linear(p, x):
-    _report(x.numel() * p["w"].shape[1])
+        c.macs += x.numel() * p["w"].shape[1]
     y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
@@ -137,8 +133,10 @@ def _taps(size: int, window: int, stride: int) -> int:
 def conv2d(p, x, *, stride=1):
     """NCHW convolution with JAX's SAME padding; ``p["b"]`` optional."""
     cout, cin, kh, kw = p["w"].shape
-    _report(x.shape[0] * _taps(x.shape[2], kh, stride)
-            * _taps(x.shape[3], kw, stride) * cin * cout)
+    c = _COUNTER.get()
+    if c is not None:
+        c.macs += (x.shape[0] * _taps(x.shape[2], kh, stride)
+                   * _taps(x.shape[3], kw, stride) * cin * cout)
     x, pad = _pad_same(x, kh, kw, stride)
     return F.conv2d(x, p["w"], p.get("b"), stride=stride, padding=pad)
 

@@ -146,31 +146,3 @@ def resnet_forward(params, images, cfg: ResNetConfig):
             logits.append(apply_exit(params, x, s, cfg))
     return {"exit_logits": torch.stack(logits), "bn_updates": {}}
 
-
-def resnet_forward_flops(cfg: ResNetConfig, batch: int) -> int:
-    """Analytic conv MACs*2 (approximate: ignores bias/norm)."""
-    res = cfg.img_res // (1 if cfg.small_input else 4)
-    fl = 0
-    cin = cfg.width
-    stem_res = cfg.img_res // (1 if cfg.small_input else 2)
-    fl += 2 * (7 * 7 if not cfg.small_input else 9) * cfg.in_channels \
-        * cfg.width * stem_res * stem_res
-    e = cfg.expansion
-    for s, depth in enumerate(cfg.depths):
-        planes = cfg.width * (2 ** s)
-        if s > 0:
-            res //= 2
-        for b in range(depth):
-            c_in = cin if b == 0 else planes * e
-            if cfg.block == "bottleneck":
-                fl += 2 * res * res * (c_in * planes + 9 * planes * planes
-                                       + planes * planes * e)
-                if b == 0:
-                    fl += 2 * res * res * c_in * planes * e
-            else:
-                fl += 2 * res * res * (9 * c_in * planes
-                                       + 9 * planes * planes)
-                if b == 0 and s > 0:
-                    fl += 2 * res * res * c_in * planes
-        cin = planes * e
-    return int(batch * fl)

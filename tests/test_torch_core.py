@@ -270,22 +270,14 @@ def test_route_policy_without_router_matches_jax():
 
 
 def test_daes_and_estimator_flops_match_jax():
+    """The port's DAES rows are the JAX package's under its ``macs``
+    energy model, the one the port keeps."""
     rows = [("static", 0.61, 0.0042, 4.8e8), ("dart", 0.58, 0.0021, 2.1e8),
             ("rl", 0.55, 0.0030, 3.3e8)]
-    for energy in ("macs", "measured"):
-        ms = [DAES.MethodMeasurement(n, a, t, m, energy_j=3 * t)
-              for n, a, t, m in rows]
-        jms = [jDAES.MethodMeasurement(n, a, t, m, energy_j=3 * t)
-               for n, a, t, m in rows]
-        for m, jm in zip(ms, jms):
-            assert DAES.summary_row(ms[0], m, 0.85, energy) == \
-                jDAES.summary_row(jms[0], jm, 0.85, energy)
-    acc, jacc = DAES.LaneDaesAccumulator(5.0), jDAES.LaneDaesAccumulator(5.0)
-    rs = np.random.RandomState(4)
-    for lane in (0, 1, 0, 2):
-        c, m, a = rs.uniform(0, 1, (3, 8))
-        acc.observe(lane, c, 5 * m, a)
-        jacc.observe(lane, c, 5 * m, a)
-    assert acc.rows() == jacc.rows()
+    ms = [DAES.MethodMeasurement(n, a, t, m) for n, a, t, m in rows]
+    jms = [jDAES.MethodMeasurement(n, a, t, m) for n, a, t, m in rows]
+    for m, jm in zip(ms, jms):
+        assert DAES.summary_row(ms[0], m, 0.85) == \
+            jDAES.summary_row(jms[0], jm, 0.85, "macs")
     for shape in ((32, 32, 3), (28, 28, 1)):
         assert DIFF.estimator_flops(*shape) == jDIFF.estimator_flops(*shape)
