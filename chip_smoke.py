@@ -53,22 +53,41 @@ Phases, each printing one JSON line:
    (basic blocks 2-2-2-2, width 64, inference batchnorm, 4 exits,
    ~11.2 M params), whose phase first runs ``measure_costs`` and emits
    the cumulative MACs per exit it installs.
-   policies — on the ResNet-18 engine: calibration (512 rows) and a
+   train   — AlexNet, VGG-16 and ResNet-18 on CIFAR-10 at full width,
+   each from the port's seeded init (seed 0), trained through
+   ``Trainer`` with Table I's protocol (synth-CIFAR, 4096 training rows,
+   batch 32, lr 3e-3, AdamW under warmup-cosine; 150, 100 and 120
+   steps), its batches from ``DataPipeline``'s prefetch thread.  Step 1
+   on the card must match the same step on the CPU: the loss, each
+   leaf's gradient, the update that the CPU's optimizer makes from the
+   card's gradients, and the batchnorm statistics; then the mean loss
+   of the last 10 steps must be below that of the first 10 (VGG-16,
+   which has no batchnorm, is reported if it does not learn).  Each
+   line: ms per step (median, p90), the share of the run spent waiting
+   on the data thread, ms per step of a second trainer with no data
+   thread running and ms to draw one batch, the first and last loss,
+   per-exit accuracy on 512 eval rows, and for ResNet-18 whether every
+   running statistic moved and is finite.  No fused kernel may launch
+   while training, and serving the trained ResNet-18 (policies) must
+   launch both of the classifier path's.
+   policies — on the ResNet-18 weights the train phase trained:
+   calibration (512 rows) and a
    holdout (512 rows at offset 1024); ``static``, ``branchynet``,
    ``rl_agent`` and ``joint_dp`` fitted on the calibration rows and the
    holdout routed with ``route_policy``; per method the exit histogram,
    mean normalised MACs, accuracy and ``daes.summary_row`` against
    static, whose time column is the cumulative stage time at the routed
    exit (stem, stages and exit heads timed with CUDA events at batch 64,
-   per sample; DART adds the difficulty kernel's time).  The weights are
-   random, so accuracy is chance: the rows are no Table I result.
+   per sample; DART adds the difficulty kernel's time).  One short run
+   on synthetic data: the rows are no Table I result.
    The installed cumulative MACs and each method's routed MACs must
    agree to 1 % with XLA's count of ResNet-18 (``RESNET18_XLA_CUM_MACS``);
    static must route every row to the last exit; and the holdout served
    on the card under joint_dp's policy, and under that policy with tau
    at each exit's calibration median (masked and compacted, no
    adaptation), must leave at ``route_policy``'s exits outside rows at a
-   gate's edge.
+   gate's edge.  joint_dp's exit histogram is reported; no early exit
+   is asserted.
 6. lm-strict — TinyLlama-1.1B at full width and depth in fp32 (seeded
    random weights, tau per exit from quantiles of the first step's
    conf): 40 requests of 16 new tokens over 16 slots (prompts of 16 to
@@ -153,6 +172,32 @@ LM_EDGE = 1e-5
 LM_BETA = 1e-4
 #: timed serving runs per pool size (after one warm-up run)
 SERVE_RUNS = 3
+
+#: the train phase: Table I's protocol (benchmarks/table1.py,
+#: benchmarks/common.py::train_model): synth-CIFAR with 4096 training and
+#: 2048 eval rows, batch 32, lr 3e-3, and each testbed's steps
+TRAIN_STEPS = {"alexnet-cifar": 150, "resnet18-cifar": 120,
+               "vgg16-cifar": 100}
+TRAIN_BATCH = 32
+TRAIN_LR = 3e-3
+#: eval rows for the per-exit accuracy after training
+TRAIN_EVAL_ROWS = 512
+#: VGG-16 has no batchnorm, and lr 3e-3 may not train it in 100 steps:
+#: a loss that does not fall there is reported, not raised
+MAY_NOT_LEARN = ("vgg16-cifar",)
+#: step 1 on the card against the same step on the CPU (TF32 off): the
+#: loss to fp32 rounding of convolutions by other algorithms; each
+#: leaf's gradient relative to its norm: the exit heads to that
+#: rounding, every leaf to the ~1e-2 that a ReLU or max-pool input at
+#: rounding level of a tie moves the leaves upstream of it (the CPU
+#: tests see the same against JAX); the optimizer's update from the
+#: same gradients to one fp32 rounding (weights ~1, lr_1 1.5e-4); the
+#: batchnorm running statistics as fp32 means over a batch
+STEP1_LOSS_RTOL = 1e-5
+STEP1_HEAD_GRAD_RTOL = 1e-4
+STEP1_GRAD_RTOL = 2e-2
+STEP1_UPDATE_TOL = 1e-6
+STEP1_STATS_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -801,6 +846,202 @@ def check_against_cpu(cfg, params, eng, x):
             "max_conf_err": err}
 
 
+# ---------------------------------------------------------------------------
+# the train phase: each testbed trained from the port's seeded init
+# ---------------------------------------------------------------------------
+
+def _pairs(a, b, key=None):
+    """(key, leaf of a, leaf of b) over two trees of one structure."""
+    if isinstance(a, dict):
+        return [t for k in a for t in _pairs(a[k], b[k], k)]
+    if isinstance(a, list):
+        return [t for x, y in zip(a, b) for t in _pairs(x, y)]
+    return [(key, a, b)]
+
+
+def train_step1_against_cpu(cfg, tc, data, init, tr):
+    """Step 1 of the card's trainer ``tr`` against the same step on the
+    CPU, from the same weights and batch, in three layers: the loss; the
+    gradients; the update that the CPU's optimizer makes from the card's
+    gradients, against the card's (an update from gradients that differ
+    in their low bits is no yardstick: AdamW maps a gradient at rounding
+    level to +-lr).  The batchnorm running statistics card vs CPU."""
+    from repro_torch.convert import tree_map
+    from repro_torch.data.datasets import make_batch
+    from repro_torch.data.pipeline import batch_indices
+    from repro_torch.models.batchnorm import STATS_KEYS
+    from repro_torch.optim import value_and_grad
+    from repro_torch.runtime.trainer import Trainer
+
+    x, y = make_batch(data, batch_indices(data, 0, tc.batch_size))
+    host = tree_map(lambda t: t.cpu(), init)
+    cpu = Trainer(cfg, tc, data, params=host, device="cpu")
+    on_card = (torch.as_tensor(x, device="cuda"),
+               torch.as_tensor(y, device="cuda"))
+    # one cuDNN algorithm choice for both backward passes on the card, so
+    # the step's own gradients are the ones compared here
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, g_card = value_and_grad(tr._loss_fn, tr.params, on_card)
+        card_loss = tr.train_step((x, y))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    _, g_cpu = value_and_grad(cpu._loss_fn, cpu.params, (torch.as_tensor(x),
+                                                         torch.as_tensor(y)))
+    cpu_loss = cpu.train_step((x, y))
+    check(math.isclose(card_loss, cpu_loss, rel_tol=STEP1_LOSS_RTOL),
+          f"train {cfg.name}: step 1 loss {card_loss} on the card, "
+          f"{cpu_loss} on the CPU")
+    grad_err = {"heads": 0.0, "all": 0.0}
+    for key, gc, gh in _pairs(g_card, g_cpu):
+        norm = float(gh.norm())
+        if key in STATS_KEYS or norm == 0.0:
+            continue
+        err = float((gc.cpu() - gh).norm()) / norm
+        grad_err["all"] = max(grad_err["all"], err)
+    # the linear heads: downstream of every ReLU and max pool
+    linear = [(g_card["head"], g_cpu["head"])] + [
+        (g_card["exit_heads"][k].get("fc", g_card["exit_heads"][k]),
+         g_cpu["exit_heads"][k].get("fc", g_cpu["exit_heads"][k]))
+        for k in g_cpu["exit_heads"]]
+    heads = [(gc, gh) for a, b in linear for _, gc, gh in _pairs(a, b)]
+    grad_err["heads"] = max(float((gc.cpu() - gh).norm() / gh.norm())
+                            for gc, gh in heads)
+    check(grad_err["heads"] <= STEP1_HEAD_GRAD_RTOL
+          and grad_err["all"] <= STEP1_GRAD_RTOL,
+          f"train {cfg.name}: step 1 gradients off the CPU's {grad_err}")
+    # the CPU optimizer from the card's gradients, against the card
+    want, _ = cpu.opt.update(tree_map(lambda t: t.cpu(), g_card),
+                             cpu.opt.init(host), host)
+    upd_err = max(float((got.cpu() - w).abs().max())
+                  for key, got, w in _pairs(tr.params, want)
+                  if key not in STATS_KEYS)
+    check(upd_err <= STEP1_UPDATE_TOL,
+          f"train {cfg.name}: the card's update is {upd_err} off the CPU "
+          f"optimizer's from the same gradients")
+    stats_err = max([float((a.cpu() - b).abs().max())
+                     for key, a, b in _pairs(tr.params, cpu.params)
+                     if key in STATS_KEYS], default=0.0)
+    check(stats_err <= STEP1_STATS_TOL,
+          f"train {cfg.name}: batchnorm statistics {stats_err} off the "
+          f"CPU's after step 1")
+    # for the record: weights that the two steps moved apart
+    off = [int(((a.cpu() - b).abs() > STEP1_UPDATE_TOL).sum())
+           for key, a, b in _pairs(tr.params, cpu.params)
+           if key not in STATS_KEYS]
+    return {"loss_card": card_loss, "loss_cpu": cpu_loss,
+            "grad_rel_err": grad_err, "update_err": upd_err,
+            "max_stats_err": stats_err, "weights_apart": sum(off),
+            "weights": sum(t.numel() for key, t, _ in
+                           _pairs(tr.params, tr.params)
+                           if key not in STATS_KEYS)}
+
+
+def step_ms_without_data_thread(cfg, tc, data, init, steps=10):
+    """Median ms of a train step on a batch already on the card, with no
+    data thread running: what a step costs the trainer alone (a fresh
+    trainer from the same init; its weights are thrown away)."""
+    from repro_torch.data.datasets import make_batch
+    from repro_torch.data.pipeline import batch_indices
+    from repro_torch.runtime.trainer import Trainer
+
+    x, y = make_batch(data, batch_indices(data, 0, tc.batch_size))
+    t0 = time.perf_counter()
+    for s in range(1, 6):
+        make_batch(data, batch_indices(data, s, tc.batch_size))
+    draw_ms = (time.perf_counter() - t0) / 5 * 1e3
+    batch = (torch.as_tensor(x, device="cuda"),
+             torch.as_tensor(y, device="cuda"))
+    tr = Trainer(cfg, tc, data, params=init)
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(batch)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times[1:])) * 1e3, draw_ms
+
+
+def eval_accuracy(fam, params, cfg, data, rows):
+    """Per-exit accuracy on the first ``rows`` eval rows (inference
+    mode, no autograd graph)."""
+    from repro_torch.data.pipeline import eval_batches
+    hits, n = 0, 0
+    with torch.no_grad():
+        for x, y in eval_batches(data, 128, n=rows):
+            logits = fam.forward(params, torch.as_tensor(x, device="cuda"),
+                                 cfg)["exit_logits"]
+            hits = hits + (logits.argmax(-1).cpu().numpy() == y[None]).sum(1)
+            n += len(y)
+    return (hits / n).tolist()
+
+
+def drive_train(cfg, name, data):
+    """Train ``cfg`` from the port's seeded init on the card with Table
+    I's protocol; returns the trained params."""
+    from repro_torch.convert import leaves
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.models import get_family
+    from repro_torch.models.batchnorm import STATS_KEYS
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+
+    steps = TRAIN_STEPS[name]
+    tc = TrainConfig(batch_size=TRAIN_BATCH, steps=steps, lr=TRAIN_LR,
+                     log_every=1)
+    fam = get_family(cfg)
+    init = fam.init(cfg, seed=0, device="cuda")
+    t_start = time.perf_counter()
+    tr = Trainer(cfg, tc, data, params=init)          # the card by default
+    check(tr.device.type == "cuda", f"train {name}: trainer not on the card")
+    step1 = train_step1_against_cpu(cfg, tc, data, init, tr)
+    alone_ms, draw_ms = step_ms_without_data_thread(cfg, tc, data, init)
+    pipe = DataPipeline(data, TRAIN_BATCH, start_step=1)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = tr.run(pipeline=pipe)
+        run_s = time.perf_counter() - t0
+    finally:
+        pipe.close()
+    check(tr.step == steps and len(hist) == steps - 1,
+          f"train {name}: {tr.step} steps, {len(hist)} logged")
+    losses = [step1["loss_card"]] + [h["loss"] for h in hist]
+    check(all(math.isfinite(v) for v in losses), f"train {name}: loss nan")
+    step_ms = np.diff([0.0] + [h["elapsed_s"] for h in hist]) * 1e3
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    learned = last < first
+    check(learned or name in MAY_NOT_LEARN,
+          f"train {name}: loss did not fall ({first} -> {last})")
+    check(not any(t.requires_grad for t in leaves(tr.params)),
+          f"train {name}: trained leaves require grad")
+    stats = None
+    if name.startswith("resnet"):
+        pairs = [(a, b) for key, a, b in _pairs(tr.params, init)
+                 if key in STATS_KEYS]
+        stats = {"leaves": len(pairs),
+                 "moved": sum(not torch.equal(a, b) for a, b in pairs),
+                 "finite": all(bool(torch.isfinite(a).all())
+                               for a, _ in pairs)}
+        check(stats["moved"] == stats["leaves"] and stats["finite"],
+              f"train {name}: running statistics {stats}")
+    emit(phase="train", model=name, steps=steps, batch=TRAIN_BATCH,
+         lr=TRAIN_LR, optimizer=tc.optimizer, warmup=tc.warmup,
+         n_train=data.n_train, seed=0, step1_vs_cpu=step1,
+         ms_per_step_median=float(np.median(step_ms)),
+         ms_per_step_p90=float(np.percentile(step_ms, 90)),
+         data_wait_share=pipe.wait_s / run_s, run_s=run_s,
+         ms_per_step_without_data_thread=alone_ms,
+         ms_to_draw_a_batch=draw_ms,
+         phase_s=time.perf_counter() - t_start,
+         loss_first=losses[0], loss_last=losses[-1],
+         loss_mean_first10=first, loss_mean_last10=last, learned=learned,
+         eval_rows=TRAIN_EVAL_ROWS,
+         exit_accuracy=eval_accuracy(fam, tr.params, cfg, data,
+                                     TRAIN_EVAL_ROWS),
+         running_stats=stats)
+    return tr.params
+
+
 def stage_ms(eng, img_shape, batch=64):
     """Per-sample device ms of the stem with stage 0 and exit 0, then of
     each later stage with its exit head (CUDA events, median of
@@ -825,9 +1066,10 @@ def stage_ms(eng, img_shape, batch=64):
     return np.asarray(ms), diff
 
 
-def drive_policies(eng, data, holdout_offset=1024):
+def drive_policies(eng, data, weights, holdout_offset=1024):
     """The four Table I methods fitted on one calibration set and routed
-    on a holdout of the same (random-weight) engine."""
+    on a holdout of the same engine (its ``weights`` described in the
+    line)."""
     from repro_torch.core import daes as DAES
     from repro_torch.core import difficulty as DIFF
     from repro_torch.engine import get_optimizer, route_policy
@@ -870,9 +1112,10 @@ def drive_policies(eng, data, holdout_offset=1024):
             check(bool((idx == e - 1).all()),
                   "policies: static routed a row before the last exit")
         if dart:
-            # on random weights joint_dp keeps every row to the last
-            # exit; its policy with tau at each exit's calibration median
-            # splits the rows, so the card's routing is really tested
+            # joint_dp may keep every row to the last exit (it did on
+            # random weights); its policy with tau at each exit's
+            # calibration median splits the rows, so the card's routing
+            # is really tested
             mid = dataclasses.replace(pol, tau=np.array(
                 [np.median(cal.conf[:, s] - pol.beta_diff * cal.alpha)
                  for s in range(e - 1)]))
@@ -894,9 +1137,9 @@ def drive_policies(eng, data, holdout_offset=1024):
     mean_alpha = float(hold.alpha.mean())
     for r, m in zip(rows, meas):
         r["daes_row"] = DAES.summary_row(meas[0], m, mean_alpha)
-    emit(phase="policies", model=eng.cfg.name, weights="random, seed 0",
-         note="random weights: accuracy is chance (~0.1 over 10 classes); "
-              "these rows are no Table I result",
+    emit(phase="policies", model=eng.cfg.name, weights=weights,
+         note="one short training run on synthetic data: these rows are "
+              "no Table I result",
          calibration_rows=len(cal.conf), holdout_rows=n,
          holdout_offset=holdout_offset, cum_macs=cum_macs.tolist(),
          stage_ms_per_sample=ms.tolist(),
@@ -1236,7 +1479,8 @@ def main() -> int:
                                                     VGG16_CIFAR)
     from repro_torch.core.difficulty import DEFAULT
     from repro_torch.data.datasets import CIFAR
-    from repro_torch.kernels import build
+    from repro_torch.engine import DartEngine
+    from repro_torch.kernels import build, dispatch
     from repro_torch.kernels.difficulty import kernel as dkern
     from repro_torch.kernels.difficulty import ref as dref
     from repro_torch.kernels.exit_gate import kernel as gkern
@@ -1271,8 +1515,31 @@ def main() -> int:
     drive_engine(ALEXNET_CIFAR, "alexnet-cifar", CIFAR, offset=6000)
     _, resnet = drive_engine(RESNET18_CIFAR, "resnet18-cifar", CIFAR,
                              offset=7000, measure_costs=True)
-    drive_policies(resnet, CIFAR)
-    del resnet
+    # train, then serve what was trained: the training step runs no
+    # fused kernel; serving the trained ResNet-18 runs both of its own
+    table1_cifar = dataclasses.replace(CIFAR, n_train=4096, n_eval=2048)
+    dispatch.reset_launch_counts()
+    trained = {name: drive_train(cfg, name, table1_cifar)
+               for cfg, name in ((ALEXNET_CIFAR, "alexnet-cifar"),
+                                 (VGG16_CIFAR, "vgg16-cifar"),
+                                 (RESNET18_CIFAR, "resnet18-cifar"))}
+    train_launches = dispatch.launch_counts()
+    check(not any(train_launches.values()),
+          f"train: fused kernels launched while training {train_launches}")
+    resnet = DartEngine.from_config(RESNET18_CIFAR,
+                                    trained["resnet18-cifar"])
+    resnet.measure_costs((32, 32, 3))
+    drive_policies(resnet, CIFAR,
+                   weights=f"trained in the train phase "
+                           f"({TRAIN_STEPS['resnet18-cifar']} steps)")
+    serve_launches = dispatch.launch_counts()
+    check(serve_launches["difficulty"] > 0
+          and serve_launches["exit_gate"] > 0,
+          f"policies: the trained engine's kernels never ran "
+          f"{serve_launches}")
+    emit(phase="train_then_serve_launches", train=train_launches,
+         serve=serve_launches)
+    del resnet, trained
     torch.cuda.empty_cache()
     lm_strict()
     lm = lm_serving()

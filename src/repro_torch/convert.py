@@ -27,13 +27,16 @@ from repro_torch.models import get_family
 from repro_torch.models.transformer_lm import LMConfig, lm_init
 
 
-def tree_map(fn, tree):
-    """``fn`` on every leaf of a params tree of dicts and lists."""
+def tree_map(fn, tree, *rest):
+    """``fn`` on every leaf of a params tree of dicts and lists, and on
+    the matching leaves of ``rest`` (trees of the same structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def leaves(tree):

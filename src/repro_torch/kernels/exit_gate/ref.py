@@ -15,9 +15,12 @@ from __future__ import annotations
 import torch
 
 
-def _shifted(lf: torch.Tensor):
-    """The logits less their row max, and the row sums of their exp."""
-    shifted = lf - lf.amax(dim=-1, keepdim=True)
+def shifted_exp(lf: torch.Tensor):
+    """The logits less their row max, their exp, and the row sums of
+    their exp: ``jax.nn.softmax``'s chain, which ``core.routing`` and the
+    plain exit head share.  The max carries no gradient, as in
+    ``jax.nn.log_softmax``."""
+    shifted = lf - lf.amax(dim=-1, keepdim=True).detach()
     e = shifted.exp()
     return shifted, e, e.sum(dim=-1, keepdim=True)
 
@@ -25,7 +28,7 @@ def _shifted(lf: torch.Tensor):
 def ref_softmax_confidence(logits: torch.Tensor):
     """(conf, pred) over (..., V): the gate without a threshold."""
     lf = logits.float()
-    _, e, s = _shifted(lf)
+    _, e, s = shifted_exp(lf)
     return (e / s).amax(dim=-1), lf.argmax(dim=-1).to(torch.int32)
 
 
@@ -33,7 +36,7 @@ def ref_exit_gate(logits: torch.Tensor, thresholds: torch.Tensor):
     """logits (B, V); thresholds (B,).  Returns (conf, entropy, pred,
     fire): float32, float32, int32, int32, each (B,)."""
     lf = logits.float()
-    shifted, e, s = _shifted(lf)
+    shifted, e, s = shifted_exp(lf)
     conf = (e / s).amax(dim=-1)
     logp = shifted - s.log()
     ent = -(logp.exp() * logp).sum(dim=-1)

@@ -198,14 +198,16 @@ def vgg_num_stages(cfg: VGGConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def staged_forward(stem, stage, exit_, n_stages):
-    """All-exits forward built from the staged functions."""
-    def forward(params, images, cfg):
+    """All-exits forward built from the staged functions.  AlexNet and VGG
+    have no batchnorm, so ``train`` changes nothing and ``bn_updates`` is
+    empty."""
+    def forward(params, images, cfg, *, train=False):
         x = stem(params, images, cfg)
         logits = []
         for s in range(n_stages(cfg)):
             x = stage(params, x, s, cfg)
             logits.append(exit_(params, x, s, cfg))
-        return {"exit_logits": torch.stack(logits)}
+        return {"exit_logits": torch.stack(logits), "bn_updates": {}}
     return forward
 
 

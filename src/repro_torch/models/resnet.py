@@ -2,8 +2,11 @@
 
 The paper's ResNet-18 testbed (basic blocks, depths 2-2-2-2) and the
 deeper bottleneck variants.  Exits sit after each stage (global average
-pool -> linear head).  Every convolution is bias-free and followed by an
-inference-mode batchnorm.  ``apply_stem`` and ``resnet_forward`` take
+pool -> linear head).  Every convolution is bias-free and followed by a
+batchnorm: in inference mode on the serving path, in train mode under
+``train=True``, where each batchnorm adds its new running statistics to
+``updates`` under the JAX package's key path ("stem/bn",
+"stages/{s}/{b}/bn1", ...).  ``apply_stem`` and ``resnet_forward`` take
 NHWC images; activations are NCHW between stages.  The stride-2 blocks
 and the 7x7 stride-2 stem pad to JAX's SAME split (``layers.conv2d``).
 """
@@ -60,20 +63,21 @@ def _block_init(gen, cin, planes, cfg, stride, kw):
     return p
 
 
-def _block_apply(p, x, cfg, stride):
+def _block_apply(p, x, cfg, stride, *, train=False, updates=None, name=""):
+    def bn(key, h):
+        return bn_apply(p[key], h, train=train, updates=updates,
+                        name=f"{name}/{key}")
+
     if cfg.block == "bottleneck":
-        h = torch.relu(bn_apply(p["bn1"], L.conv2d(p["conv1"], x)))
-        h = torch.relu(bn_apply(p["bn2"], L.conv2d(p["conv2"], h,
-                                                   stride=stride)))
-        h = bn_apply(p["bn3"], L.conv2d(p["conv3"], h))
+        h = torch.relu(bn("bn1", L.conv2d(p["conv1"], x)))
+        h = torch.relu(bn("bn2", L.conv2d(p["conv2"], h, stride=stride)))
+        h = bn("bn3", L.conv2d(p["conv3"], h))
     else:
-        h = torch.relu(bn_apply(p["bn1"], L.conv2d(p["conv1"], x,
-                                                   stride=stride)))
-        h = bn_apply(p["bn2"], L.conv2d(p["conv2"], h))
+        h = torch.relu(bn("bn1", L.conv2d(p["conv1"], x, stride=stride)))
+        h = bn("bn2", L.conv2d(p["conv2"], h))
     idn = x
     if "down_conv" in p:
-        idn = bn_apply(p["down_bn"], L.conv2d(p["down_conv"], x,
-                                              stride=stride))
+        idn = bn("down_bn", L.conv2d(p["down_conv"], x, stride=stride))
     return torch.relu(h + idn)
 
 
@@ -108,19 +112,23 @@ def resnet_init(cfg: ResNetConfig, *, seed: int = 0, device="cuda"):
 
 # -- staged interface -------------------------------------------------------
 
-def apply_stem(params, images, cfg: ResNetConfig):
+def apply_stem(params, images, cfg: ResNetConfig, *, train=False,
+               updates=None):
     x = _stem(images, cfg.compute_dtype)
     x = L.conv2d(params["stem"]["conv"], x,
                  stride=1 if cfg.small_input else 2)
-    x = torch.relu(bn_apply(params["stem"]["bn"], x))
+    x = torch.relu(bn_apply(params["stem"]["bn"], x, train=train,
+                            updates=updates, name="stem/bn"))
     if not cfg.small_input:
         x = L.max_pool(x, 3, 2)
     return x
 
 
-def apply_stage(params, x, stage: int, cfg: ResNetConfig):
+def apply_stage(params, x, stage: int, cfg: ResNetConfig, *, train=False,
+                updates=None):
     for b, bp in enumerate(params["stages"][stage]):
-        x = _block_apply(bp, x, cfg, _stride(stage, b))
+        x = _block_apply(bp, x, cfg, _stride(stage, b), train=train,
+                         updates=updates, name=f"stages/{stage}/{b}")
     return x
 
 
@@ -135,14 +143,15 @@ def num_stages(cfg: ResNetConfig) -> int:
     return len(cfg.depths)
 
 
-def resnet_forward(params, images, cfg: ResNetConfig):
-    """All exits: ``{"exit_logits": (E, B, n_classes), "bn_updates": {}}``
-    (inference batchnorm updates nothing)."""
-    x = apply_stem(params, images, cfg)
+def resnet_forward(params, images, cfg: ResNetConfig, *, train=False):
+    """All exits: ``{"exit_logits": (E, B, n_classes), "bn_updates":
+    {name: {"mean", "var"}}}``, the updates empty in inference mode."""
+    updates: dict = {}
+    x = apply_stem(params, images, cfg, train=train, updates=updates)
     logits = []
     for s in range(num_stages(cfg)):
-        x = apply_stage(params, x, s, cfg)
+        x = apply_stage(params, x, s, cfg, train=train, updates=updates)
         if s in cfg.exit_stages or s == num_stages(cfg) - 1:
             logits.append(apply_exit(params, x, s, cfg))
-    return {"exit_logits": torch.stack(logits), "bn_updates": {}}
+    return {"exit_logits": torch.stack(logits), "bn_updates": updates}
 

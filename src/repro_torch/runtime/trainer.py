@@ -1,0 +1,156 @@
+"""The classifier training loop with the paper's multi-exit objective.
+
+``Trainer(cfg, TrainConfig(...), data_cfg).run()`` trains an AlexNet,
+VGG or ResNet of ``repro_torch.models`` on one device with the Eq. 18
+loss (``core.routing.multi_exit_xent``), AdamW or SGD under a
+warmup-cosine schedule with the batchnorm running statistics masked
+out, and microbatch accumulation; a step then merges the train-mode
+batchnorm statistics into the tree.  ``trainer.params`` is a tree that
+``DartEngine.from_config`` serves as it is: its leaves never require
+grad.
+
+The reference's other options wait for later slices and raise here:
+the LM and diffusion families (ROADMAP queue 1, items 6 and 8), a mesh,
+FSDP and gradient compression (item 9), checkpoints (item 4).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from repro_torch import convert
+from repro_torch import device as DEV
+from repro_torch.core import routing as R
+from repro_torch.data.datasets import DatasetConfig
+from repro_torch.data.pipeline import DataPipeline
+from repro_torch.models import batchnorm as BN
+from repro_torch.models import family_of, get_family
+from repro_torch.models.transformer_lm import LMConfig
+from repro_torch.optim import (GradAccumulator, adamw, sgd, trainable_mask,
+                               value_and_grad, warmup_cosine)
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    batch_size: int = 32
+    steps: int = 200
+    lr: float = 1e-3
+    warmup: int = 20
+    optimizer: str = "adamw"
+    weight_decay: float = 0.01
+    max_grad_norm: float = 1.0
+    microbatches: int = 1
+    seed: int = 0
+    ckpt_dir: str | None = None
+    log_every: int = 20
+    fsdp: bool = False
+    compression: str = "none"
+    policy_weight: float = 0.01
+
+
+def _refuse(what: str, item: int):
+    raise NotImplementedError(f"{what} is not ported yet "
+                              f"(ROADMAP queue 1, item {item})")
+
+
+class Trainer:
+    """Trains ``model_cfg`` from the port's seeded init (``seed`` of the
+    train config) or from ``params`` (a tree such as
+    ``convert.from_jax_params`` makes) on ``device`` (``None`` = the
+    CUDA card)."""
+
+    def __init__(self, model_cfg, train_cfg: TrainConfig,
+                 data_cfg: DatasetConfig | None = None, *, mesh=None,
+                 params=None, device=None):
+        if isinstance(model_cfg, LMConfig):
+            _refuse("training an LM", 6)
+        try:
+            self.family_name = family_of(model_cfg)
+        except KeyError:
+            _refuse(f"training {type(model_cfg).__name__}", 8)
+        if mesh is not None or train_cfg.fsdp:
+            _refuse("training on a mesh or with FSDP", 9)
+        if train_cfg.compression not in (None, "none"):
+            _refuse("gradient compression", 9)
+        if train_cfg.ckpt_dir:
+            _refuse("checkpointing", 4)
+        self.model_cfg = model_cfg
+        self.cfg = train_cfg
+        self.family = get_family(model_cfg)
+        self.data_cfg = data_cfg or DatasetConfig()
+        self.device = DEV.resolve(device)
+        if params is None:
+            params = self.family.init(model_cfg, seed=train_cfg.seed,
+                                      device=self.device)
+        self.params = convert.tree_map(
+            lambda t: t.detach().to(self.device), params)
+
+        mask = trainable_mask(self.params)
+        schedule = warmup_cosine(train_cfg.lr, train_cfg.warmup,
+                                 train_cfg.steps)
+        if train_cfg.optimizer == "adamw":
+            self.opt = adamw(schedule, weight_decay=train_cfg.weight_decay,
+                             max_grad_norm=train_cfg.max_grad_norm,
+                             mask=mask)
+        else:
+            self.opt = sgd(schedule, max_grad_norm=train_cfg.max_grad_norm,
+                           mask=mask)
+        self.opt_state = self.opt.init(self.params)
+        self.step = 0
+        self._acc = GradAccumulator(train_cfg.microbatches)
+        self.history: list[dict] = []
+
+    def _loss_fn(self, params, batch):
+        x, y = batch
+        out = self.family.forward(params, x, self.model_cfg, train=True)
+        loss, aux = R.multi_exit_xent(out["exit_logits"], y,
+                                      policy_weight=self.cfg.policy_weight)
+        aux["bn_updates"] = out.get("bn_updates", {})
+        return loss, aux
+
+    def train_step(self, batch) -> float:
+        """One step on ``batch`` = (x NHWC images, y labels), numpy or
+        tensors: the loss of the forward before the update, then the
+        optimizer, then the batchnorm merge."""
+        x, y = (torch.as_tensor(a, device=self.device) for a in batch)
+        if self.cfg.microbatches > 1:
+            loss, grads, aux = self._acc.accumulate(self._loss_fn,
+                                                    self.params, (x, y))
+        else:
+            (loss, aux), grads = value_and_grad(self._loss_fn, self.params,
+                                                (x, y))
+        params, self.opt_state = self.opt.update(grads, self.opt_state,
+                                                 self.params)
+        bn_updates = aux.pop("bn_updates", {})
+        self.params = (BN.merge_updates(params, bn_updates) if bn_updates
+                       else params)
+        self.step += 1
+        return float(loss)
+
+    def run(self, steps: int | None = None,
+            pipeline: DataPipeline | None = None):
+        """Train to ``steps`` (default: the config's), logging
+        ``{"step", "loss", "elapsed_s"}`` every ``log_every`` steps and
+        at the last one; returns ``history``."""
+        steps = steps or self.cfg.steps
+        own_pipe = pipeline is None
+        if own_pipe:
+            pipeline = DataPipeline(self.data_cfg, self.cfg.batch_size,
+                                    start_step=self.step, device=self.device)
+        t0 = time.time()
+        try:
+            while self.step < steps:
+                _, x, y = next(pipeline)
+                loss = self.train_step((x, y))
+                if self.step % self.cfg.log_every == 0 or self.step == steps:
+                    self.history.append({"step": self.step, "loss": loss,
+                                         "elapsed_s": time.time() - t0})
+        finally:
+            if own_pipe:
+                pipeline.close()
+        return self.history
+
+    def restore(self, path=None):
+        _refuse("restoring a checkpoint", 4)

@@ -115,6 +115,48 @@ def test_route_matches_jax():
                                   np.array([1.0, 2.0, 4.0]))))
 
 
+def _lm_logits(fn, rs, b=6, v=32000):
+    """Rows at V = 32000 where torch.softmax's serial CPU sums miss JAX:
+    a planted top logit (conf 0.77 to 1) for conf, a wide spread for the
+    entropy."""
+    if fn == "entropy":
+        return (rs.randn(b, v) * 4).astype(np.float32)
+    lg = (rs.randn(b, v) * 2).astype(np.float32)
+    lg[np.arange(b), rs.randint(0, v, b)] += 16
+    return lg
+
+
+@pytest.mark.parametrize("fn", ["confidence", "entropy", "exit_head"])
+def test_softmax_chain_matches_jax_at_lm_vocab(fn):
+    """At V = 32000 the port's conf and entropy (core.routing) and the
+    plain exit head's conf stay within 1e-6 of JAX's: each writes out
+    jax.nn.softmax's chain (torch.softmax adds a CPU row in long serial
+    runs and missed JAX by 2e-6 to 1e-5 on these rows)."""
+    from repro.kernels.exit_head.ref import ref_exit_head_gate as jhead
+    from repro_torch.kernels.exit_head.ref import ref_exit_head_gate as head
+    rs = np.random.RandomState(32000)
+    if fn == "exit_head":
+        d = 64
+        args = (rs.randn(4, d).astype(np.float32),
+                (1 + 0.1 * rs.randn(d)).astype(np.float32),
+                (rs.randn(32000, d) * 0.5).astype(np.float32),
+                np.full(4, 0.3, np.float32))
+        got = [t.numpy() for t in head(*map(_t, args))]
+        want = [np.asarray(a) for a in jhead(*map(jnp.asarray, args))]
+        np.testing.assert_allclose(got[0], want[0], atol=1e-6, rtol=0)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[2], want[2])
+        return
+    lg = _lm_logits(fn, rs)
+    port, ref = {"confidence": (R.confidence_from_logits,
+                                jR.confidence_from_logits),
+                 "entropy": (R.entropy_from_logits,
+                             jR.entropy_from_logits)}[fn]
+    np.testing.assert_allclose(port(_t(lg)).numpy(),
+                               np.asarray(ref(jnp.asarray(lg))),
+                               atol=1e-6, rtol=0)
+
+
 # one compiled program per shape instead of one per op
 _jrecord = jax.jit(jAD.record_batch, static_argnums=1)
 _jupdate = jax.jit(jAD.periodic_update, static_argnums=1)

@@ -3,15 +3,17 @@ the CPU and the JAX ``DartEngine``, with the same converted weights, on
 the same synthetic batches — calibration, policy, masked and compacted
 ``infer``, section II.C updates and stats, and ``measure_costs``.
 
-The synthetic images are drawn from ``hash((seed, split))``, a str hash
-that changes with each process's hash seed, so every run serves other
-images.  Now and then a run meets an image with a Sobel magnitude
-within 1e-7 of tau_edge, which the two packages' float32 chains round
-to either side: alpha then differs by w_edge / 900 (one pixel of edge
-density).  Such images are counted (``_sobel_edge``) and kept out of the
-alpha comparison and the decisions, as rows at a gate's edge are."""
+Both packages draw the synthetic images from ``hash((seed, split))``, a
+str hash that changes with each process's hash seed; here both draw
+them from one hash-free base instead (``_fixed_images``), so every
+worker and every run serves the same images.  An image with a Sobel
+magnitude within 1e-7 of tau_edge, which the two packages' float32
+chains round to either side (alpha then differs by w_edge / 900, one
+pixel of edge density), is counted (``_sobel_edge``) and kept out of
+the alpha comparison and the decisions, as rows at a gate's edge are."""
 import copy
 import dataclasses
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -57,6 +59,22 @@ DATA = DS.DatasetConfig(name="synth-cifar", n_train=256, n_eval=1024)
 # every batch the JAX engine sees in full is padded to this one bucket, so
 # it compiles its forward once per case
 BATCH = 128
+
+
+def _fixed_rng_for(cfg, index, split):
+    """``datasets._rng_for`` with a hash-free base per (seed, split)."""
+    base = zlib.crc32(f"{cfg.seed}/{split}".encode()) % (2**31 - 1)
+    return np.random.RandomState(base ^ (index * 2654435761 % (2**31 - 1)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fixed_images():
+    """One draw of the synthetic images for both packages, whatever the
+    process's hash seed."""
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (jDS, DS):
+            mp.setattr(mod, "_rng_for", _fixed_rng_for)
+        yield
 
 
 def _jax_layout(tree):

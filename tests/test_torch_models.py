@@ -80,7 +80,7 @@ def test_conv2d_mac_count_is_the_taps_inside_the_image(hw, k, stride):
 def test_bn_apply_matches_jax(dtype):
     """Inference batchnorm with planted statistics (init's mean 0 and var
     1 would hide a swapped or transposed statistic), NCHW against JAX's
-    NHWC; the train mode is not ported and raises."""
+    NHWC; then train mode (the batch's own statistics) on the same input."""
     rs = np.random.RandomState(2)
     c = 6
     p = {"scale": rs.uniform(0.5, 1.5, c), "bias": rs.randn(c),
@@ -108,8 +108,13 @@ def test_bn_apply_matches_jax(dtype):
     tol = (1e-6, 1e-6) if dtype == np.float32 else (8e-3, 8e-3)
     np.testing.assert_allclose(_nhwc(got.float()), want, rtol=tol[0],
                                atol=tol[1])
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        BN.bn_apply(tp, tx, train=True)
+    # train mode: batch mean and biased variance, in another order (f32)
+    want = np.asarray(jBN.bn_apply(jp, jx, train=True), np.float32)
+    got = BN.bn_apply(tp, tx, train=True)
+    assert got.dtype == tx.dtype
+    tol = (1e-5, 1e-5) if dtype == np.float32 else (8e-3, 8e-3)
+    np.testing.assert_allclose(_nhwc(got.float()), want, rtol=tol[0],
+                               atol=tol[1])
 
 
 @pytest.mark.parametrize("hw,expect", [(28, 14), (14, 7), (7, 4), (5, 3),
