@@ -88,6 +88,35 @@ Phases, each printing one JSON line:
    adaptation), must leave at ``route_policy``'s exits outside rows at a
    gate's edge.  joint_dp's exit histogram is reported; no early exit
    is asserted.
+   serving — the trained ResNet-18 under joint_dp's policy (no
+   adaptation) behind ``repro_torch.serving.AsyncDartServer``: open-loop
+   Poisson streams of single eval images from a 1024-image pool drawn
+   before the phase, deadline 50 ms, priorities 0/1, each 2 s long:
+   masked with the default ``SchedulerConfig`` at 200, 2000 and 20000
+   offered requests/s, then compacted and compacted with
+   ``predict="conservative"`` at 2000/s.  Per run: offered and
+   submitted rate, completed samples/s, p50/p95/p99 latency from the
+   scheduled arrival, miss rate, shed and rejected counts, buckets by
+   flush reason and mean size, and the median and p99 host time of
+   ``submit()``.  Checks: every future resolves, completed + shed +
+   rejected = submitted, every completed result leaves at the exit and
+   with the pred of its image served alone through ``engine.infer``
+   (outside that oracle's gate-edge rows: conf within EDGE of a tau'
+   below 1; a saturated head, conf = 1 at a tau' clipped to 1, cannot
+   fire, so its rows are compared and counted apart), the conservative
+   run answers
+   as the run with prediction off, one ``difficulty`` launch per
+   admission and the gate launched.  Then the reference's baseline (one
+   ``engine.infer`` per request, FIFO) on the first 1000 requests of the
+   2000/s stream; the host time of admission (on the default stream,
+   and on a stream of its own), idle and with a 64-row bucket in
+   flight on another thread; a one-row ``infer`` alone and with a
+   thread submitting back to back; and the scheduler with one
+   launching thread at a time (2048 requests submitted to a stopped
+   server, then served); last, the 200/s stream once more with
+   ``repro_torch.obs`` on, whose spans say where the latency goes
+   (admission, submit to dispatch, dispatch to completion).  The phase
+   must take at most 60 s.
 6. lm-strict — TinyLlama-1.1B at full width and depth in fp32 (seeded
    random weights, tau per exit from quantiles of the first step's
    conf): 40 requests of 16 new tokens over 16 slots (prompts of 16 to
@@ -172,6 +201,19 @@ LM_EDGE = 1e-5
 LM_BETA = 1e-4
 #: timed serving runs per pool size (after one warm-up run)
 SERVE_RUNS = 3
+
+#: the serving phase: open-loop Poisson streams of single eval images
+#: (a pool drawn before the phase), each SERVE_SECS long, at these
+#: offered rates (requests/s); the deadline of every request; the FIFO
+#: baseline's prefix of the 2000/s stream; the phase's time budget
+SERVE_RATES = (200, 2000, 20000)
+SERVE_SECS = 2.0
+SERVE_GRACE_S = 0.5
+SERVE_DEADLINE_MS = 50.0
+SERVE_POOL = 1024
+SERVE_POOL_OFFSET = 3072
+SERVE_BASELINE = 1000
+SERVE_PHASE_S = 60.0
 
 #: the train phase: Table I's protocol (benchmarks/table1.py,
 #: benchmarks/common.py::train_model): synth-CIFAR with 4096 training and
@@ -695,10 +737,26 @@ def check_paged_gather(ref, kern, gen):
 # phases 4-5: the engine on the main path
 # ---------------------------------------------------------------------------
 
-def edge_rows(masked, tol):
+def edge_rows(masked, tol, shared_tau=False):
+    """Rows with a gate whose conf lies within ``tol`` of its tau': there
+    the strict ``conf > tau'`` may flip between two computations.  With
+    ``shared_tau`` both sides gate on this very tau' (the same alpha, so
+    the same tau' bit for bit): at a tau' clipped to 1 a saturated head
+    (conf = 1) fires on neither side, so those rows are compared."""
     conf = masked["conf_stack"][:-1].T
-    return ((conf - masked["eff_thresholds"]).abs().min(dim=1).values
-            < tol).cpu().numpy()
+    th = masked["eff_thresholds"]
+    near = (conf - th).abs() < tol
+    if shared_tau:
+        near &= th < 1
+    return near.any(dim=1).cpu().numpy()
+
+
+def saturated_rows(masked, tol):
+    """Rows with a gate at conf within ``tol`` of a tau' clipped to 1
+    (printed beside the edge rows: these are compared)."""
+    conf = masked["conf_stack"][:-1].T
+    th = masked["eff_thresholds"]
+    return (((conf - th).abs() < tol) & (th >= 1)).any(dim=1).cpu().numpy()
 
 
 def drive_engine(cfg, name, data, offset, measure_costs=False):
@@ -1176,6 +1234,318 @@ def check_card_route(eng, pol, idx, data, offset, batch=64):
 
 
 # ---------------------------------------------------------------------------
+# the serving phase: AsyncDartServer over the trained ResNet-18
+# ---------------------------------------------------------------------------
+
+def arrival_times(rate, secs, rng):
+    """Open-loop Poisson arrival offsets (s) over ``secs``."""
+    gaps = rng.exponential(1.0 / rate, int(rate * secs * 1.2) + 16)
+    t = np.cumsum(gaps)
+    return t[t < secs]
+
+
+def serve_stream(eng, pool, stream, **cfg):
+    """One open-loop run: submit each request (one pool image, deadline
+    SERVE_DEADLINE_MS) at its arrival time, whatever the server's state,
+    and wait for every future.  Latency counts from the scheduled
+    arrival, so the submitting loop's own lag is charged to the server.
+    Arrivals the loop has not reached SERVE_GRACE_S after the stream's
+    end are not sent (``unsent``).  Returns (the run's line, results by
+    submitted request: dict or the exception name)."""
+    from concurrent.futures import wait
+
+    from repro_torch.serving import AsyncDartServer, SchedulerConfig
+    arrivals, idx, prios = stream
+    srv = AsyncDartServer(eng, SchedulerConfig(**cfg))
+    futs, submit_ms, lags = [], [], []
+    t0 = time.perf_counter()
+    for t_arr, i, prio in zip(arrivals, idx, prios):
+        now = time.perf_counter() - t0
+        if now > SERVE_SECS + SERVE_GRACE_S:
+            break
+        if now < t_arr:
+            time.sleep(t_arr - now)
+            now = time.perf_counter() - t0
+        s0 = time.perf_counter()
+        futs.append(srv.submit(pool[i], deadline_ms=SERVE_DEADLINE_MS,
+                               priority=int(prio)))
+        submit_ms.append((time.perf_counter() - s0) * 1e3)
+        lags.append(max(0.0, now - t_arr))
+    t_submitted = time.perf_counter() - t0
+    done, pending = wait(futs, timeout=60)
+    t_done = time.perf_counter() - t0
+    check(not pending, f"serving: {len(pending)} futures never resolved")
+    srv.close()
+    results, lat = [], []
+    for f, lag in zip(futs, lags):
+        if f.exception() is not None:
+            results.append(type(f.exception()).__name__)
+            continue
+        res = f.result()
+        results.append(res)
+        lat.append(res["latency_ms"] + lag * 1e3)
+    c = srv.counters
+    n = len(futs)
+    check(c.get("dispatch_errors", 0) == 0
+          and c.get("complete_errors", 0) == 0,
+          f"serving: a bucket failed: {srv.last_error!r}")
+    check(c["completed"] + srv.queue.shed + srv.queue.rejected == n,
+          f"serving: completed {c['completed']} + shed {srv.queue.shed} + "
+          f"rejected {srv.queue.rejected} != submitted {n}")
+    flushes = {k[6:]: v for k, v in c.items() if k.startswith("flush_")}
+    lat = np.asarray(lat)
+    line = {"offered_per_s": len(arrivals) / SERVE_SECS,
+            "submitted": n, "unsent": len(arrivals) - n,
+            "submitted_per_s": n / t_submitted,
+            "completed": c["completed"], "shed": srv.queue.shed,
+            "rejected": srv.queue.rejected,
+            "samples_per_s": c["completed"] / t_done,
+            "latency_ms": dict(zip(("p50", "p95", "p99"), np.percentile(
+                lat, [50, 95, 99]).tolist())) if len(lat) else None,
+            "miss_rate": float(np.mean(lat > SERVE_DEADLINE_MS))
+            if len(lat) else None,
+            "flushes": flushes,
+            "mean_bucket": c["completed"] / max(sum(flushes.values()), 1),
+            "submit_ms": {"p50": float(np.median(submit_ms)),
+                          "p99": float(np.percentile(submit_ms, 99))},
+            "lag_ms_p99": float(np.percentile(lags, 99)) * 1e3,
+            "service_ms_ema": srv._service_s * 1e3,
+            "seconds": t_done}
+    return line, results
+
+
+def uncontended(eng, pool, n=2048):
+    """The scheduler with one launching thread at a time: ``n`` best-effort
+    requests submitted to a stopped server (admission alone), then
+    served by its dispatcher with no submitter running."""
+    from concurrent.futures import wait
+
+    from repro_torch.serving import AsyncDartServer, SchedulerConfig
+    srv = AsyncDartServer(eng, SchedulerConfig(max_queue=n), start=False)
+    t0 = time.perf_counter()
+    futs = [srv.submit(pool[i % len(pool)]) for i in range(n)]
+    t_fill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srv.start()
+    _, pending = wait(futs, timeout=60)
+    t_drain = time.perf_counter() - t0
+    srv.close()
+    check(not pending and srv.counters["completed"] == n,
+          "serving: the uncontended drain left requests")
+    buckets = sum(v for k, v in srv.counters.items()
+                  if k.startswith("flush_"))
+    return {"requests": n, "submit_per_s": n / t_fill,
+            "samples_per_s": n / t_drain, "buckets": buckets,
+            "ms_per_bucket": t_drain / buckets * 1e3}
+
+
+def traced_run(eng, pool, stream):
+    """The 200/s stream once more with ``repro_torch.obs`` on: where a
+    request's latency goes, from its spans (admission, submit to
+    dispatch, dispatch to completion), and what the tracing costs."""
+    from repro_torch import obs
+    obs.configure(enabled=True)
+    try:
+        line, _ = serve_stream(eng, pool, stream)
+        tr = obs.get_tracer()
+        fams = obs.parse_prometheus(obs.get_registry().render())
+    finally:
+        obs.reset()
+
+    def pct(name):
+        d = np.asarray([sp["dur"] for sp in tr.spans(name)]) * 1e3
+        check(len(d) > 0, f"serving: no {name} spans")
+        return dict(zip(("p50", "p95", "p99"),
+                        np.percentile(d, [50, 95, 99]).tolist()))
+    check(len(tr.spans("exit")) == line["completed"],
+          "serving: exit spans != completed requests")
+    check("dart_request_latency_ms" in fams, "serving: no latency family")
+    return {"latency_ms": line["latency_ms"], "miss_rate": line["miss_rate"],
+            "submit_ms": line["submit_ms"], "admit_ms": pct("admit"),
+            "queue_wait_ms": pct("queue_wait"),
+            "dispatch_to_done_ms": pct("compiled_step")}
+
+
+def held_to_oracle(results, idx, oracle):
+    """Completed results whose exit or pred differ from the image served
+    alone, outside the oracle's edge rows; the edge rows met (the only
+    results not compared), and the saturated rows met (compared)."""
+    exit_o, pred_o, edge_o, sat_o = oracle
+    bad = edge = sat = 0
+    for res, i in zip(results, idx):
+        if isinstance(res, str):
+            continue
+        if edge_o[i]:
+            edge += 1
+            continue
+        sat += int(sat_o[i])
+        if res["exit_idx"][0] != exit_o[i] or res["pred"][0] != pred_o[i]:
+            bad += 1
+    return bad, edge, sat
+
+
+def timed_under(fn, background, calls=200):
+    """Median and p99 host ms of ``fn`` (synchronised) while
+    ``background`` runs in a thread (``None``: alone)."""
+    import threading
+    stop = threading.Event()
+
+    def loop():
+        while not stop.is_set():
+            background()
+
+    t = None
+    if background is not None:
+        t = threading.Thread(target=loop)
+        t.start()
+        time.sleep(0.05)
+    ms = []
+    try:
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        stop.set()
+        if t is not None:
+            t.join(timeout=30)
+    torch.cuda.synchronize()
+    return {"p50": float(np.median(ms)), "p99": float(np.percentile(ms, 99))}
+
+
+def drive_serving(cfg, params, policy_state, cum_costs, data):
+    """The serving phase: single images with deadlines and priorities
+    through ``AsyncDartServer`` on the card (see the module docstring)."""
+    from repro_torch.data.datasets import make_batch
+    from repro_torch.engine import DartEngine
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import AdmissionPlanner
+
+    t_start = time.perf_counter()
+    eng = DartEngine.from_config(cfg, params, adapt=False,
+                                 cum_costs=cum_costs)
+    eng.state = eng.state.with_policy(tau=policy_state.tau,
+                                      coef=policy_state.coef,
+                                      beta_diff=policy_state.beta_diff)
+    pool = make_batch(data, range(SERVE_POOL_OFFSET,
+                                  SERVE_POOL_OFFSET + SERVE_POOL), "eval")[0]
+    rng = np.random.default_rng(0)
+    streams = {}
+    for rate in SERVE_RATES:
+        arr = arrival_times(rate, SERVE_SECS, rng)
+        streams[rate] = (arr, rng.integers(0, SERVE_POOL, len(arr)),
+                         rng.integers(0, 2, len(arr)))
+    # the oracle: each pool image served alone; warms every bucket shape
+    exit_o, pred_o, edge_o, sat_o = [], [], [], []
+    for i in range(SERVE_POOL):
+        out = eng.infer(pool[i:i + 1], mode="masked")
+        exit_o.append(int(out["exit_idx"][0]))
+        pred_o.append(int(out["pred"][0]))
+        edge_o.append(bool(edge_rows(out, EDGE, shared_tau=True)[0]))
+        sat_o.append(bool(saturated_rows(out, EDGE)[0]))
+    oracle = tuple(map(np.asarray, (exit_o, pred_o, edge_o, sat_o)))
+    for b in eng.compactor.buckets:
+        if b <= 64:
+            eng.infer(pool[:b], mode="masked")
+            eng.infer(pool[:b], mode="compacted", record=False)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t_start
+
+    runs = [(f"masked-{rate}", rate, {}) for rate in SERVE_RATES] + [
+        ("compacted-2000", 2000, {"mode": "compacted"}),
+        ("compacted-conservative-2000", 2000,
+         {"mode": "compacted", "predict": "conservative"})]
+    dispatch.reset_launch_counts()
+    lines, outs = {}, {}
+    for name, rate, kw in runs:
+        line, res = serve_stream(eng, pool, streams[rate], **kw)
+        bad, edge, sat = held_to_oracle(res, streams[rate][1], oracle)
+        check(bad == 0, f"serving {name}: {bad} results differ from the "
+                        f"image served alone")
+        line.update(run=name, edge_rows=edge, saturated_rows=sat)
+        lines[name], outs[name] = line, res
+        emit(phase="serving", model=cfg.name, **line)
+    launches = dispatch.launch_counts()
+    n_submits = sum(line["submitted"] for line in lines.values())
+    check(launches["difficulty"] == n_submits,
+          f"serving: {launches['difficulty']} difficulty launches for "
+          f"{n_submits} admissions")
+    check(launches["exit_gate"] > 0, "serving: the gate never launched")
+    # the conservative run answers as the run with prediction off
+    off, cons = outs["compacted-2000"], outs["compacted-conservative-2000"]
+    diff = sum(1 for a, b, i in zip(off, cons, streams[2000][1])
+               if not isinstance(a, str) and not isinstance(b, str)
+               and not oracle[2][i]
+               and (a["exit_idx"][0] != b["exit_idx"][0]
+                    or a["pred"][0] != b["pred"][0]))
+    check(diff == 0, f"serving: conservative differs from off on {diff}")
+
+    # the baseline: one engine.infer per request, FIFO, on a prefix of
+    # the 2000/s stream
+    arr, idx, _ = (a[:SERVE_BASELINE] for a in streams[2000])
+    lat = []
+    t0 = time.perf_counter()
+    for t_arr, i in zip(arr, idx):
+        now = time.perf_counter() - t0
+        if now < t_arr:
+            time.sleep(t_arr - now)
+        out = eng.infer(pool[i:i + 1], mode="masked", record=True)
+        out["exit_idx"].cpu()
+        lat.append((time.perf_counter() - t0 - t_arr) * 1e3)
+    base_s = time.perf_counter() - t0
+    baseline = {"requests": len(arr), "offered_per_s": 2000,
+                "samples_per_s": len(arr) / base_s,
+                "latency_ms": dict(zip(("p50", "p95", "p99"), np.percentile(
+                    lat, [50, 95, 99]).tolist())),
+                "miss_rate": float(np.mean(np.asarray(lat)
+                                           > SERVE_DEADLINE_MS))}
+
+    # where a submit waits: admission (the default stream) and the same
+    # admission on a stream of its own, alone and with a 64-row bucket in
+    # flight on another thread; a one-row infer alone and with a thread
+    # submitting back to back
+    planner = AdmissionPlanner(eng)
+    bucket = pool[:64]
+    alpha64 = planner.admit(bucket)[0]
+    side = torch.cuda.Stream()
+
+    def dispatcher():
+        eng.infer(bucket, mode="masked", alpha=alpha64)
+
+    def own_stream():
+        with torch.cuda.stream(side):
+            planner.admit(pool[:1])
+
+    contention = {
+        "admit_default_stream_ms": {
+            "idle": timed_under(lambda: planner.admit(pool[:1]), None),
+            "bucket_in_flight": timed_under(
+                lambda: planner.admit(pool[:1]), dispatcher)},
+        "admit_own_stream_ms": {
+            "idle": timed_under(own_stream, None),
+            "bucket_in_flight": timed_under(own_stream, dispatcher)},
+        "one_row_infer_ms": {
+            "alone": timed_under(
+                lambda: eng.infer(pool[:1], mode="masked"), None, 100),
+            "submitter_running": timed_under(
+                lambda: eng.infer(pool[:1], mode="masked"),
+                lambda: planner.admit(pool[:1]), 100)}}
+    contention["uncontended"] = uncontended(eng, pool)
+    traced = traced_run(eng, pool, streams[200])
+    phase_s = time.perf_counter() - t_start
+    emit(phase="serving", model=cfg.name, summary=True, launches=launches,
+         baseline_fifo=baseline, contention=contention,
+         traced_200=traced,
+         oracle_edge_rows=int(oracle[2].sum()),
+         oracle_saturated_rows=int(oracle[3].sum()), pool=SERVE_POOL,
+         deadline_ms=SERVE_DEADLINE_MS, setup_s=t_setup, phase_s=phase_s)
+    check(phase_s <= SERVE_PHASE_S,
+          f"serving: the phase took {phase_s:.1f} s > {SERVE_PHASE_S}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases 6-7: LM decode on the main path
 # ---------------------------------------------------------------------------
 
@@ -1539,6 +1909,11 @@ def main() -> int:
           f"{serve_launches}")
     emit(phase="train_then_serve_launches", train=train_launches,
          serve=serve_launches)
+    # serve the trained ResNet-18 to single-image requests under
+    # joint_dp's policy (installed by the policies phase)
+    serving_launches = drive_serving(RESNET18_CIFAR,
+                                     trained["resnet18-cifar"],
+                                     resnet.state, resnet.cum_costs, CIFAR)
     del resnet, trained
     torch.cuda.empty_cache()
     lm_strict()
@@ -1559,6 +1934,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/exit_gate.cu",
          "replaces": "src/repro/kernels/exit_gate/exit_gate_kernel.py:65",
          "launches": vgg["exit_gate"],
+         "serving_launches": serving_launches["exit_gate"],
          "max_abs_err": max(gate_err["conf"], gate_err["entropy"],
                             softmax_err),
          "ms": gate_ms,
@@ -1576,6 +1952,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/difficulty.cu",
          "replaces": "src/repro/kernels/difficulty/difficulty_kernel.py:86",
          "launches": vgg["difficulty"], "max_abs_err": diff_err,
+         "serving_launches": serving_launches["difficulty"],
          "ms": diff_ms,
          "plain_ms": time_ms(lambda: dref.ref_components(img, **kw)),
          "bound_ms": diff_b, "bound_by": diff_by,

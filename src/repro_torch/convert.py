@@ -5,7 +5,10 @@ or anything ``np.asarray`` reads) — ``Param`` leaves of
 ``parallel/sharding.py`` are unwrapped here, recognised by their
 ``value`` and ``axes`` attributes — and returns the port's tree on a
 device.  Dicts and lists keep their structure; convolution weights go
-from HWIO to OIHW.  Linear weights keep their (in, out) layout, and the
+from HWIO to OIHW.  A convolution weight is a 4-D leaf under the key
+``"w"`` (``layers.conv_init``'s key); other 4-D leaves, such as a
+layer-stacked attention weight ``wq`` (L, d, H, Dh), keep their
+layout.  Linear weights keep their (in, out) layout, and the
 models flatten NHWC before a fully connected layer, so no FC row needs
 permuting.  The LM tree (``models/transformer_lm.py``: embed, layers'
 norms, attention and SwiGLU weights, final and exit-head norms, the
@@ -46,16 +49,27 @@ def leaves(tree):
     return out
 
 
-def _to_port(leaf, device):
+def _to_port(leaf, key, device):
     if hasattr(leaf, "value") and hasattr(leaf, "axes"):     # Param
         leaf = leaf.value
     a = np.asarray(leaf)
-    if a.ndim == 4:                                   # conv HWIO -> OIHW
+    if key == "w" and a.ndim == 4:                   # conv HWIO -> OIHW
         a = a.transpose(3, 2, 0, 1)
     if a.dtype.name == "bfloat16":                   # ml_dtypes: no torch twin
         return torch.tensor(a.view(np.int16),
                             device=device).view(torch.bfloat16)
     return torch.tensor(a, device=device)           # copies
+
+
+def to_port_tree(values_tree, device, key=None):
+    """The JAX value tree as torch tensors on ``device``, each leaf in
+    the port's layout (``_to_port``, by its key)."""
+    if isinstance(values_tree, dict):
+        return {k: to_port_tree(v, device, k)
+                for k, v in values_tree.items()}
+    if isinstance(values_tree, (list, tuple)):
+        return [to_port_tree(v, device, key) for v in values_tree]
+    return _to_port(values_tree, key, device)
 
 
 def _check(got, want, path="params"):
@@ -81,7 +95,7 @@ def from_jax_params(values_tree, cfg, device=None):
     """JAX value tree (numpy leaves) -> the port's params for ``cfg`` on
     ``device`` (``None`` = the CUDA card)."""
     dev = DEV.resolve(device)
-    params = tree_map(lambda a: _to_port(a, dev), values_tree)
+    params = to_port_tree(values_tree, dev)
     if isinstance(cfg, LMConfig):
         _check(params, lm_init(cfg, device="meta"))
     else:

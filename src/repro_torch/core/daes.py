@@ -8,12 +8,16 @@
 On hardware the paper integrates NVIDIA-SMI power.  Energy here is the
 paper's own "architecture-agnostic" model, E ∝ MACs.
 
-A numpy-free copy of the offline rows of the JAX package's
-``core/daes.py`` (its ``macs`` energy model).
+A copy of the JAX package's ``core/daes.py`` under its ``macs`` energy
+model: the offline Table I rows and the serving half,
+:class:`LaneDaesAccumulator`, which folds Eq. 9 per scheduler lane.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
+
+import numpy as np
 
 
 @dataclasses.dataclass
@@ -52,3 +56,61 @@ def summary_row(static: MethodMeasurement, m: MethodMeasurement,
         "power_eff": power_efficiency(static, m),
         "daes": daes(static, m, mean_alpha),
     }
+
+
+# ---------------------------------------------------------------------------
+# Streaming per-lane DAES (serving telemetry)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _LaneAccum:
+    n: int = 0
+    sum_conf: float = 0.0
+    sum_macs: float = 0.0
+    sum_alpha: float = 0.0
+
+
+class LaneDaesAccumulator:
+    """Eq. 9 folded online, one accumulator per scheduler lane.
+
+    At serving time there are no labels, so accuracy is the section II.C
+    confidence-calibrated pseudo-correctness (mean exited confidence),
+    and the energy/time reference is the ``macs`` model: the static
+    baseline always pays ``static_macs`` (the full network), a lane pays
+    its mean routed MACs.  ``rows()`` renders everything through
+    :func:`summary_row`, so the serving report and the offline Table I
+    report share one formula."""
+
+    def __init__(self, static_macs: float = 1.0):
+        self.static_macs = float(static_macs)
+        self._lanes: dict = {}
+        self._lock = threading.Lock()
+
+    def observe(self, lane, conf, macs, alpha) -> None:
+        """Fold one completed request's per-sample conf/macs/alpha."""
+        conf = np.asarray(conf, np.float64)
+        with self._lock:
+            a = self._lanes.setdefault(lane, _LaneAccum())
+            a.n += int(conf.size)
+            a.sum_conf += float(conf.sum())
+            a.sum_macs += float(np.sum(macs))
+            a.sum_alpha += float(np.sum(alpha))
+
+    def rows(self) -> dict:
+        """lane -> :func:`summary_row` dict (+ sample count ``n``)."""
+        static = MethodMeasurement("static", accuracy=1.0,
+                                   time_s=self.static_macs,
+                                   macs=self.static_macs)
+        out = {}
+        with self._lock:
+            lanes = list(self._lanes.items())
+        for lane, a in sorted(lanes, key=lambda kv: str(kv[0])):
+            if not a.n:
+                continue
+            mean_macs = a.sum_macs / a.n
+            m = MethodMeasurement(name=str(lane), accuracy=a.sum_conf / a.n,
+                                  time_s=mean_macs, macs=mean_macs)
+            row = summary_row(static, m, a.sum_alpha / a.n)
+            row["n"] = a.n
+            out[lane] = row
+        return out

@@ -42,11 +42,13 @@ from repro_torch.core import thresholds as TH
 from repro_torch.core.policy import CalibrationData, PolicyResult
 from repro_torch.core.routing import DartParams
 from repro_torch.engine import registry as REG
+from repro_torch.engine import state as ST
 from repro_torch.engine.compactor import BatchCompactor
 from repro_torch.engine.state import EngineState
 from repro_torch.kernels import dispatch as KD
 from repro_torch.models import get_family
 from repro_torch.models import layers as L
+from repro_torch.obs import stats as OBS_STATS
 
 
 class DartEngine:
@@ -454,21 +456,27 @@ class DartEngine:
                 s.since_update))
         self._policy_mirror = None
 
+    def record_requests(self, latencies_ms, missed=None) -> None:
+        """Fold completed-request latency/deadline telemetry into the
+        engine state (host-side write; the async scheduler calls this
+        once per completed bucket)."""
+        self.state = ST.record_requests(self.state, latencies_ms, missed)
+
+    def record_quotes(self, quotes_ms, realized_ms) -> None:
+        """Fold admission-time SLO quote error telemetry (quote vs
+        realized latency; host-side write, like record_requests)."""
+        self.state = ST.record_quotes(self.state, quotes_ms, realized_ms)
+
     def stats(self) -> dict:
-        """Serving counters + windowed section II.C statistics (numpy)."""
+        """Serving counters + windowed section II.C statistics (numpy),
+        and ``requests`` (latency percentiles, deadline misses) once the
+        scheduler recorded any."""
         s = self.state
-        served = int(s.served)
-        counts = s.exit_counts.cpu().numpy()
-        total_macs = float(s.total_macs)
-        out = {"served": served,
-               "exit_counts": counts,
-               "exit_frac": counts / max(served, 1),
-               "total_macs": total_macs,
-               "mean_macs": total_macs / max(served, 1),
-               "total_latency_s": self.total_latency_s,
-               "active_strategy": AD.STRATEGIES[
-                   int(s.adaptive["active_strategy"])]}
-        if served:
+        out = OBS_STATS.engine_summary(ST.telemetry_totals(s))
+        out["total_latency_s"] = self.total_latency_s
+        out["active_strategy"] = AD.STRATEGIES[
+            int(s.adaptive["active_strategy"])]
+        if out["served"]:
             w = AD.window_stats(s.adaptive, self.acfg)
             out["window"] = {k: v.cpu().numpy() for k, v in w.items()}
-        return out
+        return OBS_STATS.attach_requests(out, s)

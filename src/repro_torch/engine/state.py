@@ -2,15 +2,17 @@
 
 Threshold parameters, the section II.C sliding-window state and the
 serving counters, as tensors on the engine's device.  The fields are
-those of the JAX package's ``engine/state.py`` (the latency, slot and
-quote telemetry is written by the serving layers of later slices);
-scalar knobs such as ``beta_diff`` are 0-d tensors.  Checkpointing waits
+those of the JAX package's ``engine/state.py``; the latency and quote
+telemetry is written from the host by the async scheduler
+(``repro_torch.serving``), the slot counters wait for the LM session.
+Scalar knobs such as ``beta_diff`` are 0-d tensors.  Checkpointing waits
 for the checkpoint slice.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core import adaptive as AD
@@ -93,3 +95,91 @@ class EngineState:
                             ("beta_diff", beta_diff),
                             ("beta_opt", beta_opt)) if v is not None}
         return dataclasses.replace(self, **rep)
+
+
+# ---------------------------------------------------------------------------
+# Per-request serving telemetry (latency / deadline SLO)
+# ---------------------------------------------------------------------------
+# Request latency is a host quantity (the clock starts at submit() and
+# stops when the scheduler completes the bucket), so these helpers run on
+# numpy and write the result back as tensors on the state's device.
+
+#: EngineState fields that carry per-sample serving telemetry
+TELEMETRY_FIELDS = ("served", "exit_counts", "total_macs", "since_update",
+                    "slot_steps", "decode_steps")
+
+
+def telemetry_totals(state: EngineState) -> dict:
+    """Host numpy copies of the telemetry leaves (what ``stats()``
+    summarises)."""
+    return {f: getattr(state, f).cpu().numpy() for f in TELEMETRY_FIELDS}
+
+
+def record_requests(state: EngineState, latencies_ms,
+                    missed=None) -> EngineState:
+    """Fold a batch of completed requests into the latency ring buffer.
+
+    latencies_ms: (k,) per-request wall latency; ``missed``: optional
+    (k,) bools — completed after the request's deadline."""
+    lat = np.atleast_1d(np.asarray(latencies_ms, np.float32))
+    k, w = lat.shape[0], state.lat_ms.shape[0]
+    if k == 0:
+        return state
+    ptr = int(state.lat_ptr)
+    buf = state.lat_ms.cpu().numpy().copy()
+    buf[(ptr + np.arange(k)) % w] = lat
+    n_miss = int(np.sum(missed)) if missed is not None else 0
+    dev = state.lat_ms.device
+    return dataclasses.replace(
+        state,
+        lat_ms=torch.as_tensor(buf, device=dev),
+        lat_ptr=torch.full_like(state.lat_ptr, (ptr + k) % w),
+        lat_count=state.lat_count + k,
+        deadline_miss=state.deadline_miss + n_miss)
+
+
+def record_quotes(state: EngineState, quotes_ms,
+                  realized_ms) -> EngineState:
+    """Fold admission-time latency quotes vs realized latency for a
+    batch of completed requests.  Entries with a None/NaN quote
+    (admitted before the service EMA seeded) are skipped."""
+    q = np.asarray([np.nan if v is None else v for v in quotes_ms],
+                   np.float32)
+    r = np.asarray(realized_ms, np.float32)
+    ok = ~np.isnan(q)
+    k = int(ok.sum())
+    if k == 0:
+        return state
+    # float32 sums, as the JAX package adds float32 scalars
+    return dataclasses.replace(
+        state,
+        quote_ms_sum=state.quote_ms_sum + float(q[ok].sum()),
+        quote_err_ms_sum=state.quote_err_ms_sum
+        + float(np.abs(q[ok] - r[ok]).sum()),
+        quote_count=state.quote_count + k)
+
+
+def latency_percentiles(lat_ms) -> dict:
+    """p50/p95/p99/mean summary of a latency sample (ms)."""
+    lat = np.asarray(lat_ms, np.float32)
+    p50, p95, p99 = np.percentile(lat, [50.0, 95.0, 99.0])
+    return {"p50": float(p50), "p95": float(p95), "p99": float(p99),
+            "mean": float(lat.mean())}
+
+
+def request_stats(state: EngineState) -> dict:
+    """Windowed latency percentiles + lifetime deadline-miss rate."""
+    n = int(state.lat_count)
+    miss = int(state.deadline_miss)
+    out = {"requests": n, "deadline_miss": miss,
+           "miss_rate": miss / max(n, 1)}
+    if n:
+        out["latency_ms"] = latency_percentiles(
+            state.lat_ms.cpu().numpy()[:min(n, state.lat_ms.shape[0])])
+    qn = int(state.quote_count)
+    if qn:
+        out["quote"] = {
+            "quoted": qn,
+            "mean_quote_ms": float(state.quote_ms_sum) / qn,
+            "mean_abs_err_ms": float(state.quote_err_ms_sum) / qn}
+    return out

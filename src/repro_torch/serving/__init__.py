@@ -1,0 +1,50 @@
+"""repro_torch.serving — async, difficulty-aware request scheduling.
+
+Callers submit individual requests (with deadlines and priorities) and
+a scheduler consolidates them into ``BatchCompactor`` buckets, packing
+by PREDICTED cost — the Eq. 8 difficulty estimator runs at admission,
+before the model executes — so easy traffic never waits behind hard
+traffic:
+
+    from repro_torch.engine import DartEngine
+    from repro_torch.serving import AsyncDartServer
+
+    engine = DartEngine.from_config(model_cfg, params)   # on the card
+    with AsyncDartServer(engine) as server:
+        fut = server.submit(x, deadline_ms=50, priority=1)
+        out = fut.result()        # engine.infer keys + latency_ms + SLO
+        print(server.stats()["requests"]["latency_ms"])   # p50/p95/p99
+
+Pieces (a port of the JAX package's ``repro/serving`` for the
+classifier engine):
+
+* :class:`AsyncDartServer` — the scheduler façade (loop.py): background
+  dispatcher, size-or-deadline flush.
+* :class:`SchedulerConfig` — its knobs (flush/hold timing, backpressure
+  policy ``shed`` | ``reject`` | ``degrade-alpha``, bucket targets).
+* :class:`AdmissionPlanner` — Eq. 8 difficulty (the ``difficulty``
+  kernel on a card) + telemetry-prior cost prediction at enqueue
+  (planner.py), and per-request latency QUOTES when prediction is on.
+* :class:`ExitDepthPredictor` — admission-time exit-depth prediction
+  (predict.py) feeding head-skip (``min_exit``), predicted-depth lanes
+  and SLO quotes.  Enable via ``SchedulerConfig(predict="conservative")``
+  (same decisions) or ``"aggressive"`` (opt-in).
+* :class:`RequestQueue` — lane-keyed backpressure queue (queue.py).
+
+Scheduling never changes routing under a fixed policy: every completed
+request's outputs are those of serving it alone through
+``engine.infer`` (the admission alpha is handed to the engine, Alg. 1
+runs unchanged).
+"""
+from repro_torch.serving.loop import AsyncDartServer, SchedulerConfig
+from repro_torch.serving.planner import AdmissionPlanner
+from repro_torch.serving.predict import ExitDepthPredictor
+from repro_torch.serving.queue import RequestQueue
+from repro_torch.serving.request import (DispatchError, InvalidEngineOutput,
+                                         Request, RequestRejected,
+                                         RequestShed)
+
+__all__ = ["AsyncDartServer", "SchedulerConfig", "AdmissionPlanner",
+           "ExitDepthPredictor", "RequestQueue", "Request",
+           "RequestRejected", "RequestShed", "DispatchError",
+           "InvalidEngineOutput"]
