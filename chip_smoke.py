@@ -52,7 +52,10 @@ Phases, each printing one JSON line:
 5. engine  — the same for AlexNet/CIFAR-10, and for ResNet-18/CIFAR-10
    (basic blocks 2-2-2-2, width 64, inference batchnorm, 4 exits,
    ~11.2 M params), whose phase first runs ``measure_costs`` and emits
-   the cumulative MACs per exit it installs.
+   the cumulative MACs per exit it installs; then for LeViT-256 (Table
+   II; 3 exits, ~13.2 M params, batchnorm on the (B, N, C) tokens),
+   whose ``measure_costs`` must also agree with XLA's count pinned in
+   ``LEVIT_XLA_CUM_MACS`` to ``LEVIT_MACS_RTOL``.
    train   — AlexNet, VGG-16 and ResNet-18 on CIFAR-10 at full width,
    each from the port's seeded init (seed 0), trained through
    ``Trainer`` with Table I's protocol (synth-CIFAR, 4096 training rows,
@@ -117,6 +120,19 @@ Phases, each printing one JSON line:
    ``repro_torch.obs`` on, whose spans say where the latency goes
    (admission, submit to dispatch, dispatch to completion).  The phase
    must take at most 60 s.
+   table2 — Table II's protocol (benchmarks/table2.py) on weights the
+   port trained: LeViT-128S, LeViT-192 and LeViT-256 at full width, each
+   trained as in the train phase (120 steps, one ``table2-train`` line
+   each, step 1 against the CPU, the loss must fall, every running
+   statistic must move), then ``static`` and ``joint_dp`` fitted and
+   routed as in the policies phase (one ``table2`` line each: accuracy,
+   routed MACs, time at the routed exit from CUDA-event stage times,
+   speedup, exit histogram and ``levit_macs``).  Checks: no fused
+   kernel launched while training; installed and routed MACs within
+   ``LEVIT_MACS_RTOL`` of XLA's count; static at the last exit; the
+   holdout served on the card leaves at ``route_policy``'s exits.  No
+   accuracy and no early exit is asserted: synth-CIFAR is no Table II
+   result.
 6. lm-strict — TinyLlama-1.1B at full width and depth in fp32 (seeded
    random weights, tau per exit from quantiles of the first step's
    conf): 40 requests of 16 new tokens over 16 slots (prompts of 16 to
@@ -138,7 +154,9 @@ Phases, each printing one JSON line:
    the oracle's own hidden rows, decides otherwise than the oracle's bf16
    head) or as neither.
 8. the kernels summary line, every number in it measured or computed
-   in this run, then the ``ok`` line.
+   in this run (the gate's and the difficulty kernel's launches in the
+   LeViT-256 engine phase and in table2 beside VGG-16's), then the
+   ``ok`` line.
 
 Any failed check raises: the script exits non-zero and prints no ``ok``
 line.  Without CUDA it exits 1 before printing anything.
@@ -181,6 +199,17 @@ CPU_CONF_TOL = 1e-4
 RESNET18_XLA_CUM_MACS = np.array([145720069.0, 270493381.0, 385371717.0,
                                   482118981.0])
 MACS_RTOL = 0.01
+#: LEVIT_128S/192/256's (Table II) cumulative MACs per exit, counted the
+#: same way (tests/test_torch_levit.py pins the same numbers).  The port
+#: counts the products and the token layers' elementwise flops as XLA
+#: does; XLA's fusion counts the scale and bias of the attention scores
+#: twice, which leaves the port 0.06-0.2 % below at these widths
+LEVIT_XLA_CUM_MACS = {
+    "levit-128s": np.array([16643622.0, 44686024.0, 63443367.0]),
+    "levit-192": np.array([55225398.0, 95464062.0, 112654589.0]),
+    "levit-256": np.array([96710726.0, 165505926.0, 195993989.0]),
+}
+LEVIT_MACS_RTOL = 0.005
 
 #: passes over each engine batch in each mode; all but the first timed
 PASSES = 5
@@ -219,7 +248,8 @@ SERVE_PHASE_S = 60.0
 #: benchmarks/common.py::train_model): synth-CIFAR with 4096 training and
 #: 2048 eval rows, batch 32, lr 3e-3, and each testbed's steps
 TRAIN_STEPS = {"alexnet-cifar": 150, "resnet18-cifar": 120,
-               "vgg16-cifar": 100}
+               "vgg16-cifar": 100, "levit-128s": 120, "levit-192": 120,
+               "levit-256": 120}
 TRAIN_BATCH = 32
 TRAIN_LR = 3e-3
 #: eval rows for the per-exit accuracy after training
@@ -240,6 +270,13 @@ STEP1_HEAD_GRAD_RTOL = 1e-4
 STEP1_GRAD_RTOL = 2e-2
 STEP1_UPDATE_TOL = 1e-6
 STEP1_STATS_TOL = 1e-5
+#: LeViT's step-1 gradients: a leaf whose norm is below this share of
+#: the whole gradient's norm is held to STEP1_GRAD_RTOL of that share.
+#: A train-mode batchnorm downstream removes what a leaf before it
+#: shifts (the batch mean), so such a leaf's gradient is zero in exact
+#: arithmetic and only rounding is left (norms and errors ~1e-9 of the
+#: whole on the CPU against JAX: the stage-2 blocks before head_bn)
+STEP1_GRAD_FLOOR = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -759,14 +796,18 @@ def saturated_rows(masked, tol):
     return (((conf - th).abs() < tol) & (th >= 1)).any(dim=1).cpu().numpy()
 
 
-def drive_engine(cfg, name, data, offset, measure_costs=False):
-    """One engine phase; returns (launch counts, the engine)."""
+def drive_engine(cfg, name, data, offset, measure_costs=False,
+                 xla_cum_macs=None):
+    """One engine phase; returns (launch counts, the engine).  With
+    ``xla_cum_macs`` (LeViT-256's) the installed count must agree with
+    it to LEVIT_MACS_RTOL."""
     from repro_torch.convert import leaves
     from repro_torch.data.datasets import make_batch
     from repro_torch.engine import DartEngine
     from repro_torch.kernels import dispatch
     from repro_torch.models import get_family
 
+    t_start = time.perf_counter()
     params = get_family(cfg).init(cfg, seed=0, device="cuda")
     n_params = sum(t.numel() for t in leaves(params))
     eng = DartEngine.from_config(cfg, params)          # the card by default
@@ -782,6 +823,11 @@ def drive_engine(cfg, name, data, offset, measure_costs=False):
                                       data.channels)).tolist()
         check(all(0 < a < b for a, b in zip(cum_macs, cum_macs[1:])),
               f"{name}: cumulative MACs {cum_macs} not increasing")
+        if xla_cum_macs is not None:
+            check(np.allclose(cum_macs, xla_cum_macs, rtol=LEVIT_MACS_RTOL,
+                              atol=0),
+                  f"{name}: cumulative MACs {cum_macs} off XLA's "
+                  f"{xla_cum_macs.tolist()}")
 
     dispatch.reset_launch_counts()
     t0 = time.perf_counter()
@@ -853,7 +899,8 @@ def drive_engine(cfg, name, data, offset, measure_costs=False):
          edge_rows=total_edge, exit_counts=exits.tolist(),
          served=st["served"], active_strategy=st["active_strategy"],
          mean_macs=st["mean_macs"], cum_macs=cum_macs, batches=rows,
-         one_row_counting=counting, cpu_reference=cpu_check)
+         one_row_counting=counting, cpu_reference=cpu_check,
+         phase_s=time.perf_counter() - t_start)
     return counts, eng
 
 
@@ -917,13 +964,15 @@ def _pairs(a, b, key=None):
     return [(key, a, b)]
 
 
-def train_step1_against_cpu(cfg, tc, data, init, tr):
+def train_step1_against_cpu(cfg, tc, data, init, tr, grad_floor=0.0):
     """Step 1 of the card's trainer ``tr`` against the same step on the
     CPU, from the same weights and batch, in three layers: the loss; the
     gradients; the update that the CPU's optimizer makes from the card's
     gradients, against the card's (an update from gradients that differ
     in their low bits is no yardstick: AdamW maps a gradient at rounding
-    level to +-lr).  The batchnorm running statistics card vs CPU."""
+    level to +-lr).  The batchnorm running statistics card vs CPU.
+    ``grad_floor``: the least share of the whole gradient's norm that a
+    leaf's error is taken relative to (STEP1_GRAD_FLOOR)."""
     from repro_torch.convert import tree_map
     from repro_torch.data.datasets import make_batch
     from repro_torch.data.pipeline import batch_indices
@@ -951,11 +1000,14 @@ def train_step1_against_cpu(cfg, tc, data, init, tr):
           f"train {cfg.name}: step 1 loss {card_loss} on the card, "
           f"{cpu_loss} on the CPU")
     grad_err = {"heads": 0.0, "all": 0.0}
+    whole = math.sqrt(sum(float(gh.double().square().sum())
+                          for key, _, gh in _pairs(g_card, g_cpu)
+                          if key not in STATS_KEYS))
     for key, gc, gh in _pairs(g_card, g_cpu):
         norm = float(gh.norm())
         if key in STATS_KEYS or norm == 0.0:
             continue
-        err = float((gc.cpu() - gh).norm()) / norm
+        err = float((gc.cpu() - gh).norm()) / max(norm, grad_floor * whole)
         grad_err["all"] = max(grad_err["all"], err)
     # the linear heads: downstream of every ReLU and max pool
     linear = [(g_card["head"], g_cpu["head"])] + [
@@ -1034,9 +1086,9 @@ def eval_accuracy(fam, params, cfg, data, rows):
     return (hits / n).tolist()
 
 
-def drive_train(cfg, name, data):
+def drive_train(cfg, name, data, phase="train", grad_floor=0.0):
     """Train ``cfg`` from the port's seeded init on the card with Table
-    I's protocol; returns the trained params."""
+    I's (or Table II's) protocol; returns the trained params."""
     from repro_torch.convert import leaves
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.models import get_family
@@ -1051,7 +1103,7 @@ def drive_train(cfg, name, data):
     t_start = time.perf_counter()
     tr = Trainer(cfg, tc, data, params=init)          # the card by default
     check(tr.device.type == "cuda", f"train {name}: trainer not on the card")
-    step1 = train_step1_against_cpu(cfg, tc, data, init, tr)
+    step1 = train_step1_against_cpu(cfg, tc, data, init, tr, grad_floor)
     alone_ms, draw_ms = step_ms_without_data_thread(cfg, tc, data, init)
     pipe = DataPipeline(data, TRAIN_BATCH, start_step=1)
     try:
@@ -1073,7 +1125,7 @@ def drive_train(cfg, name, data):
     check(not any(t.requires_grad for t in leaves(tr.params)),
           f"train {name}: trained leaves require grad")
     stats = None
-    if name.startswith("resnet"):
+    if name.startswith(("resnet", "levit")):
         pairs = [(a, b) for key, a, b in _pairs(tr.params, init)
                  if key in STATS_KEYS]
         stats = {"leaves": len(pairs),
@@ -1082,7 +1134,7 @@ def drive_train(cfg, name, data):
                                for a, _ in pairs)}
         check(stats["moved"] == stats["leaves"] and stats["finite"],
               f"train {name}: running statistics {stats}")
-    emit(phase="train", model=name, steps=steps, batch=TRAIN_BATCH,
+    emit(phase=phase, model=name, steps=steps, batch=TRAIN_BATCH,
          lr=TRAIN_LR, optimizer=tc.optimizer, warmup=tc.warmup,
          n_train=data.n_train, seed=0, step1_vs_cpu=step1,
          ms_per_step_median=float(np.median(step_ms)),
@@ -1124,10 +1176,14 @@ def stage_ms(eng, img_shape, batch=64):
     return np.asarray(ms), diff
 
 
-def drive_policies(eng, data, weights, holdout_offset=1024):
-    """The four Table I methods fitted on one calibration set and routed
-    on a holdout of the same engine (its ``weights`` described in the
-    line)."""
+def drive_policies(eng, data, weights, xla_cum_macs, *, phase="policies",
+                   methods=("static", "branchynet", "rl_agent", "joint_dp"),
+                   macs_rtol=MACS_RTOL, table="Table I",
+                   holdout_offset=1024, **extra):
+    """The ``methods`` (static first) fitted on one calibration set and
+    routed on a holdout of the same engine (its ``weights`` described in
+    the line), the MACs held to XLA's count ``xla_cum_macs``; ``extra``
+    goes into the line as it is."""
     from repro_torch.core import daes as DAES
     from repro_torch.core import difficulty as DIFF
     from repro_torch.engine import get_optimizer, route_policy
@@ -1139,15 +1195,13 @@ def drive_policies(eng, data, weights, holdout_offset=1024):
     ms, diff_ms = stage_ms(eng, img)
     cum_ms = np.cumsum(ms)
     cum_macs = np.asarray(eng.cum_costs)
-    check(np.allclose(cum_macs, RESNET18_XLA_CUM_MACS, rtol=MACS_RTOL,
-                      atol=0),
-          f"policies: cumulative MACs {cum_macs} off XLA's "
-          f"{RESNET18_XLA_CUM_MACS}")
+    check(np.allclose(cum_macs, xla_cum_macs, rtol=macs_rtol, atol=0),
+          f"{phase}: cumulative MACs {cum_macs} off XLA's {xla_cum_macs}")
     norm = cum_macs / cum_macs[-1]
     est_macs = DIFF.estimator_flops(*img) / 2.0
     n, e = hold.conf.shape
     rows, meas = [], []
-    for method in ("static", "branchynet", "rl_agent", "joint_dp"):
+    for method in methods:
         t0 = time.perf_counter()
         pol = (eng.calibrate(cal) if method == "joint_dp"
                else get_optimizer(method)(cal, beta_opt=0.5))
@@ -1162,13 +1216,13 @@ def drive_policies(eng, data, weights, holdout_offset=1024):
             / 1e3,
             macs=float(cum_macs[idx].mean() + (est_macs if dart else 0.0)))
         # the routed MACs against XLA's count of the same routes
-        xla = float(RESNET18_XLA_CUM_MACS[idx].mean())
+        xla = float(xla_cum_macs[idx].mean())
         check(math.isclose(m.macs - (est_macs if dart else 0.0), xla,
-                           rel_tol=MACS_RTOL),
-              f"policies: {method} routed MACs {m.macs} off XLA's {xla}")
+                           rel_tol=macs_rtol),
+              f"{phase}: {method} routed MACs {m.macs} off XLA's {xla}")
         if method == "static":
             check(bool((idx == e - 1).all()),
-                  "policies: static routed a row before the last exit")
+                  f"{phase}: static routed a row before the last exit")
         if dart:
             # joint_dp may keep every row to the last exit (it did on
             # random weights); its policy with tau at each exit's
@@ -1179,7 +1233,7 @@ def drive_policies(eng, data, weights, holdout_offset=1024):
                  for s in range(e - 1)]))
             mid_idx = route_policy(mid, hold)
             check(len(np.unique(mid_idx)) >= 2,
-                  "policies: the median-tau policy took fewer than 2 exits")
+                  f"{phase}: the median-tau policy took fewer than 2 exits")
             card_route = {
                 "joint_dp": check_card_route(eng, pol, idx, data,
                                              holdout_offset),
@@ -1195,9 +1249,9 @@ def drive_policies(eng, data, weights, holdout_offset=1024):
     mean_alpha = float(hold.alpha.mean())
     for r, m in zip(rows, meas):
         r["daes_row"] = DAES.summary_row(meas[0], m, mean_alpha)
-    emit(phase="policies", model=eng.cfg.name, weights=weights,
+    emit(phase=phase, model=eng.cfg.name, weights=weights,
          note="one short training run on synthetic data: these rows are "
-              "no Table I result",
+              f"no {table} result", **extra,
          calibration_rows=len(cal.conf), holdout_rows=n,
          holdout_offset=holdout_offset, cum_macs=cum_macs.tolist(),
          stage_ms_per_sample=ms.tolist(),
@@ -1226,11 +1280,53 @@ def check_card_route(eng, pol, idx, data, offset, batch=64):
     masked, comp, edge = map(np.concatenate, (masked, comp, edge))
     ok = ~edge
     check(np.array_equal(masked[ok], idx[ok]),
-          "policies: joint_dp on the card (masked) left off route_policy")
+          f"{eng.cfg.name}: joint_dp on the card (masked) left off "
+          "route_policy")
     check(np.array_equal(comp[ok], idx[ok]),
-          "policies: joint_dp on the card (compacted) left off route_policy")
+          f"{eng.cfg.name}: joint_dp on the card (compacted) left off "
+          "route_policy")
     return {"rows": len(idx), "edge_rows": int(edge.sum()),
             "exit_counts": np.bincount(comp, minlength=eng.n_exits).tolist()}
+
+
+def drive_table2(data):
+    """Table II's protocol on the three LeViTs: each trained from the
+    port's seeded init, then static and joint_dp fitted and routed on
+    the trained weights.  Returns the launch counts of the serving
+    half (training launches no fused kernel)."""
+    from repro_torch.configs.paper_testbeds import (LEVIT_128S, LEVIT_192,
+                                                    LEVIT_256)
+    from repro_torch.engine import DartEngine
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.cnn_zoo import levit_macs
+
+    t0 = time.perf_counter()
+    beds = ((LEVIT_128S, "levit-128s"), (LEVIT_192, "levit-192"),
+            (LEVIT_256, "levit-256"))
+    dispatch.reset_launch_counts()
+    trained = {name: drive_train(cfg, name, data, phase="table2-train",
+                                 grad_floor=STEP1_GRAD_FLOOR)
+               for cfg, name in beds}
+    train_s = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    check(not any(launches.values()),
+          f"table2: fused kernels launched while training {launches}")
+    for cfg, name in beds:
+        eng = DartEngine.from_config(cfg, trained[name])
+        eng.measure_costs((data.img_res, data.img_res, data.channels))
+        drive_policies(eng, data,
+                       weights=f"trained in this phase "
+                               f"({TRAIN_STEPS[name]} steps)",
+                       xla_cum_macs=LEVIT_XLA_CUM_MACS[name],
+                       phase="table2", methods=("static", "joint_dp"),
+                       macs_rtol=LEVIT_MACS_RTOL, table="Table II",
+                       levit_macs=levit_macs(cfg))
+    launches = dispatch.launch_counts()
+    check(launches["difficulty"] > 0 and launches["exit_gate"] > 0,
+          f"table2: the trained engines' kernels never ran {launches}")
+    emit(phase="table2_summary", launches=launches, train_s=train_s,
+         phase_s=time.perf_counter() - t0)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1845,6 +1941,7 @@ def main() -> int:
                   {**os.environ, "PYTHONHASHSEED": "0"})
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.paper_testbeds import (ALEXNET_CIFAR,
+                                                    LEVIT_256,
                                                     RESNET18_CIFAR,
                                                     VGG16_CIFAR)
     from repro_torch.core.difficulty import DEFAULT
@@ -1885,6 +1982,9 @@ def main() -> int:
     drive_engine(ALEXNET_CIFAR, "alexnet-cifar", CIFAR, offset=6000)
     _, resnet = drive_engine(RESNET18_CIFAR, "resnet18-cifar", CIFAR,
                              offset=7000, measure_costs=True)
+    levit, _ = drive_engine(LEVIT_256, "levit-256", CIFAR, offset=11000,
+                            measure_costs=True,
+                            xla_cum_macs=LEVIT_XLA_CUM_MACS["levit-256"])
     # train, then serve what was trained: the training step runs no
     # fused kernel; serving the trained ResNet-18 runs both of its own
     table1_cifar = dataclasses.replace(CIFAR, n_train=4096, n_eval=2048)
@@ -1901,7 +2001,8 @@ def main() -> int:
     resnet.measure_costs((32, 32, 3))
     drive_policies(resnet, CIFAR,
                    weights=f"trained in the train phase "
-                           f"({TRAIN_STEPS['resnet18-cifar']} steps)")
+                           f"({TRAIN_STEPS['resnet18-cifar']} steps)",
+                   xla_cum_macs=RESNET18_XLA_CUM_MACS)
     serve_launches = dispatch.launch_counts()
     check(serve_launches["difficulty"] > 0
           and serve_launches["exit_gate"] > 0,
@@ -1915,6 +2016,9 @@ def main() -> int:
                                      trained["resnet18-cifar"],
                                      resnet.state, resnet.cum_costs, CIFAR)
     del resnet, trained
+    torch.cuda.empty_cache()
+    # Table II: the three LeViTs trained, then served (static, joint_dp)
+    table2 = drive_table2(table1_cifar)
     torch.cuda.empty_cache()
     lm_strict()
     lm = lm_serving()
@@ -1935,6 +2039,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/exit_gate/exit_gate_kernel.py:65",
          "launches": vgg["exit_gate"],
          "serving_launches": serving_launches["exit_gate"],
+         "levit_engine_launches": levit["exit_gate"],
+         "table2_launches": table2["exit_gate"],
          "max_abs_err": max(gate_err["conf"], gate_err["entropy"],
                             softmax_err),
          "ms": gate_ms,
@@ -1953,6 +2059,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/difficulty/difficulty_kernel.py:86",
          "launches": vgg["difficulty"], "max_abs_err": diff_err,
          "serving_launches": serving_launches["difficulty"],
+         "levit_engine_launches": levit["difficulty"],
+         "table2_launches": table2["difficulty"],
          "ms": diff_ms,
          "plain_ms": time_ms(lambda: dref.ref_components(img, **kw)),
          "bound_ms": diff_b, "bound_by": diff_by,

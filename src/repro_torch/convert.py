@@ -8,7 +8,8 @@ device.  Dicts and lists keep their structure; convolution weights go
 from HWIO to OIHW.  A convolution weight is a 4-D leaf under the key
 ``"w"`` (``layers.conv_init``'s key); other 4-D leaves, such as a
 layer-stacked attention weight ``wq`` (L, d, H, Dh), keep their
-layout.  Linear weights keep their (in, out) layout, and the
+layout, as do LeViT's 3-D attention weights ``wq``/``wk``/``wv``/``wo``
+and bias tables.  Linear weights keep their (in, out) layout, and the
 models flatten NHWC before a fully connected layer, so no FC row needs
 permuting.  The LM tree (``models/transformer_lm.py``: embed, layers'
 norms, attention and SwiGLU weights, final and exit-head norms, the

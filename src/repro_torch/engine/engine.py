@@ -137,9 +137,9 @@ class DartEngine:
         """Cumulative MACs per exit for one image of ``img_shape`` (H, W,
         C), counted by ``layers.count_macs`` as XLA's cost analysis counts
         them in the JAX engine: convolution taps inside the unpadded
-        input and linear products, for the stages up to exit s plus exit
-        s's own head (the stem is not counted).  Installs the result as
-        ``self.cum_costs``."""
+        input, linear and attention products, and LeViT's elementwise
+        work, for the stages up to exit s plus exit s's own head (the stem
+        is not counted).  Installs the result as ``self.cum_costs``."""
         if not self.family.staged:
             raise ValueError("measure_costs needs a staged family")
         fam, cfg = self.family, self.cfg

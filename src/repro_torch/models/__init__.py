@@ -2,13 +2,13 @@
 
 ``FAMILIES[family]`` exposes ``init(cfg, seed=, device=)``, ``forward``
 (all exits) and the stem/stage/exit functions the DART serving engine
-drives; ``staged`` says whether a family has them.  This slice carries
-the paper's AlexNet, VGG and ResNet testbeds.
+drives; ``staged`` says whether a family has them.  The port carries
+the paper's AlexNet, VGG, ResNet and LeViT testbeds.
 """
 from __future__ import annotations
 
 from repro_torch.models import cnn_zoo, resnet
-from repro_torch.models.cnn_zoo import AlexNetConfig, VGGConfig
+from repro_torch.models.cnn_zoo import AlexNetConfig, LeViTConfig, VGGConfig
 from repro_torch.models.resnet import ResNetConfig
 
 
@@ -40,17 +40,22 @@ FAMILIES = {
                    stage=cnn_zoo.vgg_apply_stage,
                    exit_=cnn_zoo.vgg_apply_exit,
                    n_stages=cnn_zoo.vgg_num_stages),
+    "levit": _Family(cnn_zoo.levit_init, cnn_zoo.levit_forward,
+                     stem=cnn_zoo.levit_apply_stem,
+                     stage=cnn_zoo.levit_apply_stage,
+                     exit_=cnn_zoo.levit_apply_exit,
+                     n_stages=cnn_zoo.levit_num_stages),
 }
 
 
 def family_of(cfg) -> str:
     return {ResNetConfig: "resnet", AlexNetConfig: "alexnet",
-            VGGConfig: "vgg"}[type(cfg)]
+            VGGConfig: "vgg", LeViTConfig: "levit"}[type(cfg)]
 
 
 def get_family(cfg) -> _Family:
     return FAMILIES[family_of(cfg)]
 
 
-__all__ = ["cnn_zoo", "resnet", "AlexNetConfig", "VGGConfig",
+__all__ = ["cnn_zoo", "resnet", "AlexNetConfig", "VGGConfig", "LeViTConfig",
            "ResNetConfig", "FAMILIES", "family_of", "get_family"]

@@ -3,9 +3,13 @@
 The parameters are ``{"scale", "bias", "mean", "var"}``: scale and bias
 in the param dtype, the running mean and variance in float32 whatever
 the param dtype, as in the JAX package.  ``bn_apply`` normalises over
-the channel axis of an NCHW (or (B, C)) tensor in float32 with
-``rsqrt(var + eps)`` and casts back to the input's dtype.  Nothing is
-folded into the convolution before it: folding rounds differently.
+the axis ``channel_axis`` in float32 with ``rsqrt(var + eps)`` and casts
+back to the input's dtype: axis 1 of NCHW activations and of (B, C)
+rows (the default), axis -1 of LeViT's (B, N, C) tokens, where the JAX
+package normalises the last axis of (..., C).  The axis is the
+caller's to say: it cannot be read off the shape, since N equals C for
+some token tensors.  Nothing is folded into the convolution before it:
+folding rounds differently.
 
 Train mode normalises with the batch statistics: the float32 mean and
 the *biased* variance over every axis but the channels, with gradients
@@ -33,15 +37,19 @@ def bn_init(dim, dtype, *, device):
             "var": torch.ones(dim, dtype=torch.float32, device=device)}
 
 
-def bn_apply(p, x, *, train: bool = False, momentum: float = 0.9,
-             updates: dict | None = None, name: str = ""):
-    """x: (B, C, ...) normalised per channel: with the running statistics,
-    or in train mode with the batch's (the new running ones go to
+def bn_apply(p, x, *, channel_axis: int = 1, train: bool = False,
+             momentum: float = 0.9, updates: dict | None = None,
+             name: str = ""):
+    """x normalised per channel along ``channel_axis`` (1: (B, C, ...);
+    -1: (..., C)): with the running statistics, or in train mode with
+    the batch's over every other axis (the new running ones go to
     ``updates[name]`` when ``updates`` is given)."""
-    shape = (1, -1) + (1,) * (x.dim() - 2)
+    axis = channel_axis % x.dim()
+    shape = [1] * x.dim()
+    shape[axis] = -1
     xf = x.float()
     if train:
-        axes = (0,) + tuple(range(2, x.dim()))
+        axes = tuple(d for d in range(x.dim()) if d != axis)
         mu = xf.mean(dim=axes)
         var = xf.var(dim=axes, correction=0)
         if updates is not None:

@@ -1,6 +1,7 @@
-"""The paper's CNN testbeds: AlexNet and VGG-16 (Table I, CIFAR-10 / MNIST).
+"""The paper's CNN/ViT testbeds: AlexNet and VGG-16 (Table I, CIFAR-10 /
+MNIST) and LeViT (Table II).
 
-Both expose the staged interface of the DART serving engine
+All expose the staged interface of the DART serving engine
 (``apply_stem`` / ``apply_stage`` / ``apply_exit`` / ``num_stages``) and
 an all-exits ``forward``.  ``apply_stem`` and ``forward`` take NHWC
 images ``(B, H, W, C)`` and exit heads return logits ``(B, n_classes)``;
@@ -8,7 +9,19 @@ images ``(B, H, W, C)`` and exit heads return logits ``(B, n_classes)``;
 activations are NCHW.  Before a flatten into a fully connected layer
 they are put back in NHWC order, so the FC weights mean what they mean
 in the JAX package.  AlexNet and VGG use their original norm-free
-convolutions.  LeViT waits for a later slice.
+convolutions.
+
+LeViT keeps the JAX package's design: a stem of stride-2 convolutions
+with batchnorm and hard-swish, then (B, N, C) tokens in the row-major
+order of the NHWC map (``_tokens``: the NCHW activations are put back
+in NHWC order first, so the (heads, q, n) attention-bias table and the
+``::2`` subsample of a shrink block address the tokens they address in
+JAX); attention blocks with a learned bias table and a float32
+softmax, MLP blocks, a batchnorm on the last axis after each; a shrink
+block between stages, whose attention has no residual around it; the
+Eq. 16 exit heads (``vit.exit_head_apply``).  In train mode each
+batchnorm adds its new running statistics to ``updates`` under the JAX
+package's key path ("stem/0/bn", "stages/0/1/attn/bn", ...).
 """
 from __future__ import annotations
 
@@ -17,7 +30,10 @@ from typing import Any
 
 import torch
 
+from repro_torch import device as DEV
 from repro_torch.models import layers as L
+from repro_torch.models.batchnorm import bn_apply, bn_init
+from repro_torch.models.vit import exit_head_apply, exit_head_init
 
 
 def _flatten_nhwc(x):
@@ -191,6 +207,227 @@ def vgg_apply_exit(params, x, stage: int, cfg: VGGConfig):
 
 def vgg_num_stages(cfg: VGGConfig) -> int:
     return len(_vgg_stage_blocks(cfg))
+
+
+# ---------------------------------------------------------------------------
+# LeViT
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LeViTConfig:
+    name: str = "levit-128s"
+    img_res: int = 224
+    in_channels: int = 3
+    n_classes: int = 1000
+    dims: tuple[int, ...] = (128, 256, 384)
+    heads: tuple[int, ...] = (4, 6, 8)
+    depths: tuple[int, ...] = (2, 3, 4)
+    key_dim: int = 16
+    mlp_ratio: int = 2
+    stem_convs: int = 4                 # each stride 2 (224 -> 14)
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.float32
+
+    @property
+    def n_exits(self) -> int:
+        return len(self.dims)           # exit after each stage; last = final
+
+    @property
+    def stem_res(self) -> int:
+        return self.img_res // (2 ** self.stem_convs)
+
+
+def _levit_stem_channels(cfg: LeViTConfig) -> list[int]:
+    return ([cfg.in_channels]
+            + [max(8, cfg.dims[0] // (2 ** (cfg.stem_convs - 1 - i)))
+               for i in range(cfg.stem_convs - 1)] + [cfg.dims[0]])
+
+
+def _levit_attn_init(gen, dim, heads, key_dim, n_tokens, kw, *,
+                     out_dim=None, q_tokens=None):
+    out_dim = out_dim or dim
+    v_dim = key_dim * 2
+    q_tokens = q_tokens or n_tokens
+
+    def w(*shape):
+        return L.trunc_normal(shape, gen, **kw)
+    return {"wq": w(dim, heads, key_dim), "wk": w(dim, heads, key_dim),
+            "wv": w(dim, heads, v_dim), "wo": w(heads, v_dim, out_dim),
+            "bias": torch.zeros((heads, q_tokens, n_tokens), **kw),
+            "bn": bn_init(out_dim, kw["dtype"], device=kw["device"])}
+
+
+def _bn_tokens(p, x, *, train, updates, name):
+    L.count_flops(4 * x.numel() + x.shape[-1])
+    return bn_apply(p, x, channel_axis=-1, train=train, updates=updates,
+                    name=name)
+
+
+def _add(x, y):
+    """A residual add, counted."""
+    L.count_flops(x.numel())
+    return x + y
+
+
+def _levit_attn(p, xq, xkv, *, train, updates, name):
+    """Queries from ``xq`` (B, Q, D), keys and values from ``xkv`` (B, N,
+    D): scores plus the (H, Q, N) bias, softmax in float32 cast back,
+    hard-swish after ``wo``, then batchnorm on the tokens."""
+    q = L.einsum("bsd,dhk->bshk", xq, p["wq"])
+    k = L.einsum("bsd,dhk->bshk", xkv, p["wk"])
+    v = L.einsum("bsd,dhk->bshk", xkv, p["wv"])
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = L.einsum("bqhd,bkhd->bhqk", q, k) * scale + p["bias"]
+    # scale and bias, then softmax: max, subtract, sum, divide (XLA
+    # counts each reduction of n elements as n - 1 flops)
+    L.count_flops(6 * s.numel() - 2 * (s.numel() // s.shape[-1]))
+    w = torch.softmax(s.float(), dim=-1).to(xq.dtype)
+    o = L.einsum("bhqk,bkhd->bqhd", w, v)
+    o = L.hard_swish(L.einsum("bqhd,hdo->bqo", o, p["wo"]))
+    return _bn_tokens(p["bn"], o, train=train, updates=updates, name=name)
+
+
+def _levit_mlp_init(gen, dim, ratio, kw):
+    return {"up": L.linear_init(gen, dim, dim * ratio, bias=False, **kw),
+            "bn_up": bn_init(dim * ratio, kw["dtype"], device=kw["device"]),
+            "down": L.linear_init(gen, dim * ratio, dim, bias=False, **kw),
+            "bn_down": bn_init(dim, kw["dtype"], device=kw["device"])}
+
+
+def _levit_mlp(p, x, *, train, updates, name):
+    h = L.hard_swish(_bn_tokens(p["bn_up"], L.linear(p["up"], x),
+                                train=train, updates=updates,
+                                name=f"{name}/bn_up"))
+    return _bn_tokens(p["bn_down"], L.linear(p["down"], h), train=train,
+                      updates=updates, name=f"{name}/bn_down")
+
+
+def levit_init(cfg: LeViTConfig, *, seed: int = 0, device="cuda"):
+    device = DEV.resolve(device)
+    gen = _generator(seed, device)
+    kw = dict(device=device, dtype=cfg.param_dtype)
+    chans = _levit_stem_channels(cfg)
+    p = {"stem": [{"conv": L.conv_init(gen, 3, 3, chans[i], chans[i + 1],
+                                       bias=False, **kw),
+                   "bn": bn_init(chans[i + 1], cfg.param_dtype,
+                                 device=device)}
+                  for i in range(cfg.stem_convs)],
+         "stages": [], "shrink": [], "exit_heads": {},
+         "head_bn": bn_init(cfg.dims[-1], cfg.param_dtype, device=device),
+         "head": L.linear_init(gen, cfg.dims[-1], cfg.n_classes, **kw)}
+    res = cfg.stem_res
+    last = len(cfg.dims) - 1
+    for s, (dim, heads, depth) in enumerate(zip(cfg.dims, cfg.heads,
+                                                cfg.depths)):
+        n_tok = res * res
+        p["stages"].append([
+            {"attn": _levit_attn_init(gen, dim, heads, cfg.key_dim, n_tok,
+                                      kw),
+             "mlp": _levit_mlp_init(gen, dim, cfg.mlp_ratio, kw)}
+            for _ in range(depth)])
+        if s < last:
+            p["shrink"].append({
+                "attn": _levit_attn_init(gen, dim, cfg.heads[s + 1],
+                                         cfg.key_dim, n_tok, kw,
+                                         out_dim=cfg.dims[s + 1],
+                                         q_tokens=(res // 2) ** 2),
+                "mlp": _levit_mlp_init(gen, cfg.dims[s + 1], cfg.mlp_ratio,
+                                       kw)})
+            res //= 2
+            p["exit_heads"][str(s)] = exit_head_init(
+                gen, dim, cfg.n_classes, max(16, dim // 2), **kw)
+    return p
+
+
+def _tokens(x):
+    """(B, C, H, W) -> (B, H*W, C) in the row-major order of the NHWC
+    map, the JAX package's token order."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1, x.shape[1])
+
+
+def levit_apply_stem(params, images, cfg: LeViTConfig, *, train=False,
+                     updates=None):
+    x = _stem(images, cfg.compute_dtype)
+    for i, sp in enumerate(params["stem"]):
+        x = L.hard_swish(bn_apply(sp["bn"], L.conv2d(sp["conv"], x,
+                                                     stride=2),
+                                  train=train, updates=updates,
+                                  name=f"stem/{i}/bn"))
+    return _tokens(x)
+
+
+def levit_apply_stage(params, x, stage: int, cfg: LeViTConfig, *,
+                      train=False, updates=None):
+    kw = dict(train=train, updates=updates)
+    if stage > 0:
+        # shrink: queries on every other row and column of the token
+        # map, no residual around the attention (its width changes)
+        sh = params["shrink"][stage - 1]
+        b, n, d = x.shape
+        res = int(n ** 0.5)
+        xq = x.reshape(b, res, res, d)[:, ::2, ::2].reshape(b, -1, d)
+        x = _levit_attn(sh["attn"], xq, x,
+                        name=f"shrink/{stage - 1}/attn/bn", **kw)
+        x = _add(x, _levit_mlp(sh["mlp"], x,
+                               name=f"shrink/{stage - 1}/mlp", **kw))
+    for i, bp in enumerate(params["stages"][stage]):
+        x = _add(x, _levit_attn(bp["attn"], x, x,
+                                name=f"stages/{stage}/{i}/attn/bn", **kw))
+        x = _add(x, _levit_mlp(bp["mlp"], x,
+                               name=f"stages/{stage}/{i}/mlp", **kw))
+    return x
+
+
+def levit_apply_exit(params, x, stage: int, cfg: LeViTConfig, *,
+                     train=False, updates=None):
+    if stage == len(cfg.dims) - 1:
+        L.count_flops(x.numel())                    # the pooling
+        h = _bn_tokens(params["head_bn"], L.global_avg_pool(x),
+                       train=train, updates=updates, name="head_bn")
+        return L.linear(params["head"], h)
+    return exit_head_apply(params["exit_heads"][str(stage)], x)
+
+
+def levit_num_stages(cfg: LeViTConfig) -> int:
+    return len(cfg.dims)
+
+
+def levit_forward(params, images, cfg: LeViTConfig, *, train=False):
+    """All exits: ``{"exit_logits": (E, B, n_classes), "bn_updates":
+    {name: {"mean", "var"}}}``, the updates empty in inference mode."""
+    updates: dict = {}
+    kw = dict(train=train, updates=updates)
+    x = levit_apply_stem(params, images, cfg, **kw)
+    logits = []
+    for s in range(levit_num_stages(cfg)):
+        x = levit_apply_stage(params, x, s, cfg, **kw)
+        logits.append(levit_apply_exit(params, x, s, cfg, **kw))
+    return {"exit_logits": torch.stack(logits), "bn_updates": updates}
+
+
+def levit_macs(cfg: LeViTConfig) -> int:
+    """Analytic MACs for Table II, formula for formula the JAX package's:
+    the stem, the stages' blocks and the final linear.  It leaves out
+    what the reference leaves out: the shrink blocks and the exit
+    heads."""
+    res = cfg.img_res
+    macs = 0
+    chans = _levit_stem_channels(cfg)
+    for i in range(cfg.stem_convs):
+        res //= 2
+        macs += 9 * chans[i] * chans[i + 1] * res * res
+    res = cfg.stem_res
+    for s, (dim, heads, depth) in enumerate(zip(cfg.dims, cfg.heads,
+                                                cfg.depths)):
+        n = res * res
+        kd, vd = cfg.key_dim, cfg.key_dim * 2
+        per = (n * dim * heads * (2 * kd + vd) + n * n * heads * (kd + vd)
+               + n * heads * vd * dim + 2 * n * dim * dim * cfg.mlp_ratio)
+        macs += depth * per
+        if s < len(cfg.dims) - 1:
+            res //= 2
+    macs += cfg.dims[-1] * cfg.n_classes
+    return int(macs)
 
 
 # ---------------------------------------------------------------------------

@@ -9,12 +9,20 @@ pad split so the larger half comes after — a stride-2 or odd-sized
 window therefore pads at the end only, and SAME max-pooling rounds odd
 sizes up (28 -> 14 -> 7 -> 4), where torch's defaults would floor.
 
+LeViT's token layers keep the JAX package's forms where torch's
+defaults differ: ``layernorm`` with eps 1e-6 in float32, the tanh
+``gelu``; ``global_avg_pool`` takes (B, N, D) tokens as well as NCHW.
+
 Init draws from an explicit ``torch.Generator``: He-normal convolutions
 and truncated-normal (std 0.02, cut at 2 std) linears, the same
 distributions as the JAX init, not the same numbers.
 
-``count_macs()`` counts the multiply-accumulates of ``conv2d`` and
-``linear`` inside its scope.  A convolution counts only the kernel taps
+``count_macs()`` counts the multiply-accumulates of ``conv2d``,
+``linear`` and ``einsum`` inside its scope; the token layers (LeViT's
+``layernorm``, ``gelu``, ``hard_swish``, and ``count_flops`` at its
+softmax, batchnorm, pooling and residual adds) add their elementwise
+flops as XLA's cost analysis counts them, halved (the CNNs' count
+leaves them out).  A convolution counts only the kernel taps
 that land inside its unpadded input, as XLA's cost analysis does, so
 the SAME padding adds nothing (a counter at the ``aten.convolution``
 level would see ``F.pad``'s zeros as image).
@@ -54,15 +62,19 @@ def he_normal(shape, generator, fan_in, *, device, dtype=torch.float32):
 
 
 def linear_init(generator, in_dim, out_dim, *, device,
-                dtype=torch.float32):
-    """{"w": (in, out), "b": (out,)} — the JAX layout, ``x @ w + b``."""
-    return {"w": trunc_normal((in_dim, out_dim), generator, device=device,
-                              dtype=dtype),
-            "b": torch.zeros(out_dim, device=device, dtype=dtype)}
+                dtype=torch.float32, bias=True):
+    """{"w": (in, out), "b": (out,)} — the JAX layout, ``x @ w + b``; no
+    "b" when ``bias`` is false."""
+    p = {"w": trunc_normal((in_dim, out_dim), generator, device=device,
+                           dtype=dtype)}
+    if bias:
+        p["b"] = torch.zeros(out_dim, device=device, dtype=dtype)
+    return p
 
 
 class MacCount:
-    """Multiply-accumulates reported by ``conv2d`` and ``linear``."""
+    """Multiply-accumulates reported by ``conv2d``, ``linear`` and
+    ``einsum``."""
 
     def __init__(self):
         self.macs = 0
@@ -70,6 +82,14 @@ class MacCount:
 
 _COUNTER: contextvars.ContextVar[MacCount | None] = contextvars.ContextVar(
     "repro_torch_mac_count", default=None)
+
+
+def count_flops(flops):
+    """Add elementwise work, in flops as XLA's cost analysis counts them
+    (a MAC is two), to an open ``count_macs`` scope."""
+    c = _COUNTER.get()
+    if c is not None:
+        c.macs += flops / 2
 
 
 @contextlib.contextmanager
@@ -91,6 +111,48 @@ def linear(p, x):
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def einsum(spec: str, a, b):
+    """``torch.einsum`` of two operands, counted: the product of every
+    index's size, as XLA counts a ``dot_general`` (LeViT's attention
+    products; ``linear`` counts the plain matmuls)."""
+    c = _COUNTER.get()
+    if c is not None:
+        sizes = dict(zip(spec.split("->")[0].replace(",", ""),
+                         tuple(a.shape) + tuple(b.shape)))
+        c.macs += math.prod(sizes.values())
+    return torch.einsum(spec, a, b)
+
+
+def layernorm_init(dim, dtype, *, device):
+    return {"scale": torch.ones(dim, dtype=dtype, device=device),
+            "bias": torch.zeros(dim, dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps=1e-6):
+    """Over the last axis in float32, cast back: the JAX package's chain
+    and its eps (torch's ``layer_norm`` defaults to 1e-5)."""
+    count_flops(8 * x.numel() + 2 * (x.numel() // x.shape[-1]))
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(dtype)
+
+
+def gelu(x):
+    """The tanh form, ``jax.nn.gelu``'s default (torch's is the exact
+    erf form)."""
+    count_flops(8 * x.numel())
+    return F.gelu(x, approximate="tanh")
+
+
+def hard_swish(x):
+    """``x * relu6(x + 3) / 6``, as ``jax.nn.hard_swish``."""
+    count_flops(4 * x.numel())
+    return F.hardswish(x)
 
 
 def conv_init(generator, kh, kw, cin, cout, *, device,
@@ -149,8 +211,8 @@ def max_pool(x, window, stride):
 
 
 def global_avg_pool(x):
-    """(B, C, H, W) -> (B, C)."""
-    return x.mean(dim=(2, 3))
+    """(B, C, H, W) -> (B, C), or (B, N, D) tokens -> (B, D)."""
+    return x.mean(dim=(2, 3) if x.dim() == 4 else 1)
 
 
 # ---------------------------------------------------------------------------

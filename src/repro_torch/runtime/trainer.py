@@ -1,7 +1,7 @@
 """The classifier training loop with the paper's multi-exit objective.
 
 ``Trainer(cfg, TrainConfig(...), data_cfg).run()`` trains an AlexNet,
-VGG or ResNet of ``repro_torch.models`` on one device with the Eq. 18
+VGG, ResNet or LeViT of ``repro_torch.models`` on one device with the Eq. 18
 loss (``core.routing.multi_exit_xent``), AdamW or SGD under a
 warmup-cosine schedule with the batchnorm running statistics masked
 out, and microbatch accumulation; a step then merges the train-mode
