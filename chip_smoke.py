@@ -56,6 +56,20 @@ Phases, each printing one JSON line:
    II; 3 exits, ~13.2 M params, batchnorm on the (B, N, C) tokens),
    whose ``measure_costs`` must also agree with XLA's count pinned in
    ``LEVIT_XLA_CUM_MACS`` to ``LEVIT_MACS_RTOL``.
+   vision — the assigned vision archs at full width, bf16 and 224 x 224
+   on seeded random init, each built from its arch id
+   (``DartEngine.from_config("vit-s16", params)``): ViT-S/16, ConvNeXt-B,
+   ViT-H/14 and ResNet-152 (bottleneck blocks, the ImageNet stem).  One
+   pool of 1280 synth-CIFAR images at 224 pixels is drawn first in
+   worker processes and shared: 256 calibration rows, then batches of
+   1, 64, 256 and 1024 rows (ViT-H/14 and ResNet-152 stop at 256).  Each
+   phase is an ``engine`` phase as above: ``measure_costs`` within
+   ``LEVIT_MACS_RTOL`` of ``VISION_XLA_CUM_MACS``, joint-DP then a median
+   policy, both modes, launch counts exact, at least two exits, masked
+   and compacted equal outside edge rows (in bf16 also rows whose conf
+   is within ``BF16_EDGE_RTOL`` of tau': the modes' other batch shapes
+   may take other kernels); ViT-S/16 (8 rows) and ConvNeXt-B (4 rows)
+   against the CPU in bf16 (``check_against_cpu_bf16``).
    train   — AlexNet, VGG-16 and ResNet-18 on CIFAR-10 at full width,
    each from the port's seeded init (seed 0), trained through
    ``Trainer`` with Table I's protocol (synth-CIFAR, 4096 training rows,
@@ -155,8 +169,10 @@ Phases, each printing one JSON line:
    head) or as neither.
 8. the kernels summary line, every number in it measured or computed
    in this run (the gate's and the difficulty kernel's launches in the
-   LeViT-256 engine phase and in table2 beside VGG-16's), then the
-   ``ok`` line.
+   LeViT-256 engine phase and in table2 beside VGG-16's; under
+   ``vision224`` each one timed at the vision phases' shape, the gate
+   at (1024, 1000) bf16 and ``difficulty`` at (1024, 224, 224, 3), with
+   the launches of those phases), then the ``ok`` line.
 
 Any failed check raises: the script exits non-zero and prints no ``ok``
 line.  Without CUDA it exits 1 before printing anything.
@@ -210,6 +226,48 @@ LEVIT_XLA_CUM_MACS = {
     "levit-256": np.array([96710726.0, 165505926.0, 195993989.0]),
 }
 LEVIT_MACS_RTOL = 0.005
+#: the assigned vision architectures (full width, bf16, 224 x 224,
+#: seeded random init) and the largest batch each engine phase serves
+VISION_ARCHS = (("vit-s16", 1024), ("convnext-b", 1024), ("vit-h14", 256),
+                ("resnet-152", 256))
+#: their cumulative MACs per exit as XLA's cost analysis counts them: the
+#: JAX engine's ``measure_costs((224, 224, 3))`` on the CPU, from
+#: tools/xla_cum_macs.py (tests/test_torch_vit.py pins the same numbers;
+#: XLA's count includes its CPU backend's bf16 converts and its fusion's
+#: recomputed residual chains, which ``count_macs`` counts as XLA does).
+#: The card's count must agree to LEVIT_MACS_RTOL
+VISION_XLA_CUM_MACS = {
+    "vit-s16": np.array([1540830725.0, 3081172229.0, 4621687493.0]),
+    "vit-h14": np.array([41963774301.0, 83925004637.0, 125886234973.0,
+                         167847184349.0]),
+    "convnext-b": np.array([1389402181.0, 2806292421.0, 14549518789.0,
+                            15917610309.0]),
+    "resnet-152": np.array([702401540.0, 2668827140.0, 11164841988.0,
+                            11935906564.0]),
+}
+#: the vision phases' images: synth-CIFAR drawn at 224 x 224 once, in
+#: worker processes, and shared by the four phases: VISION_CAL_ROWS
+#: calibration rows, then 1024 rows that each phase serves (its batches
+#: are prefixes of them); rows of the card checked against the CPU
+VISION_CAL_ROWS = 256
+VISION_OFFSET = 20000
+VISION_CPU_ROWS = {"vit-s16": 8, "convnext-b": 4}
+#: card vs CPU in bf16: each side rounds every op's result to 8 bits in
+#: its own order, so the logits differ by a few units of bf16's last
+#: place (2^-8 of the largest logit) after 12-36 blocks: held to this
+#: share of the largest logit; conf to BF16_CONF_RTOL of itself.  A row
+#: whose top-2 logit gap, or whose |conf - tau'| at a gate, is within
+#: twice the two sides' own difference there may decide otherwise: such
+#: rows are counted, not compared, and may be at most half
+BF16_LOGIT_TOL = 0.05
+BF16_CONF_RTOL = 0.05
+#: masked vs compacted on the card in bf16: a gate's conf within this
+#: share of itself of tau' (beside EDGE) counts as an edge row.  The
+#: modes' other batch shapes may take other kernels; their conf at the
+#: same exit differed by at most 1.3e-4 of itself (this script's
+#: ``max_mode_conf_rdiff`` on an H100 80GB HBM3 at 700 W), rows of a
+#: two-way tie apart
+BF16_EDGE_RTOL = 2.0 ** -10
 
 #: passes over each engine batch in each mode; all but the first timed
 PASSES = 5
@@ -423,12 +481,14 @@ def gate_inputs(b, v, gen, chunk):
 #: (rows, V, dtype, offset): the logits start ``offset`` elements into a
 #: flat buffer, so offset 1 is not 16-byte aligned.  The classifier's
 #: 10 classes and 1000 (the ImageNet heads) at 1 to 1500 rows (the
-#: engine's two-chunk request), LM vocabularies (TinyLlama 32 000,
+#: engine's two-chunk request; (1024, 1000) bf16 is the vision phases'
+#: gate), LM vocabularies (TinyLlama 32 000,
 #: DeepSeek 129 280), V = 1, each dtype at V = 10 and 32 000; each side
 #: of each route threshold is added by ``gate_cases``.
 GATE_CASES = ([(b, v, torch.float32, 0) for b in (1, 7, 256, 1024)
                for v in (10, 1000, 32000, 129280)]
               + [(256, 1000, torch.bfloat16, 0),
+                 (1024, 1000, torch.bfloat16, 0),
                  (7, 129280, torch.float16, 0),
                  (1, 1, torch.float32, 0), (1024, 1, torch.float32, 0),
                  (1500, 10, torch.float32, 0)]
@@ -774,15 +834,16 @@ def check_paged_gather(ref, kern, gen):
 # phases 4-5: the engine on the main path
 # ---------------------------------------------------------------------------
 
-def edge_rows(masked, tol, shared_tau=False):
-    """Rows with a gate whose conf lies within ``tol`` of its tau': there
-    the strict ``conf > tau'`` may flip between two computations.  With
-    ``shared_tau`` both sides gate on this very tau' (the same alpha, so
-    the same tau' bit for bit): at a tau' clipped to 1 a saturated head
-    (conf = 1) fires on neither side, so those rows are compared."""
+def edge_rows(masked, tol, shared_tau=False, rtol=0.0):
+    """Rows with a gate whose conf lies within ``tol`` (plus ``rtol`` of
+    conf) of its tau': there the strict ``conf > tau'`` may flip between
+    two computations.  With ``shared_tau`` both sides gate on this very
+    tau' (the same alpha, so the same tau' bit for bit): at a tau'
+    clipped to 1 a saturated head (conf = 1) fires on neither side, so
+    those rows are compared."""
     conf = masked["conf_stack"][:-1].T
     th = masked["eff_thresholds"]
-    near = (conf - th).abs() < tol
+    near = (conf - th).abs() < tol + rtol * conf
     if shared_tau:
         near &= th < 1
     return near.any(dim=1).cpu().numpy()
@@ -796,11 +857,19 @@ def saturated_rows(masked, tol):
     return (((conf - th).abs() < tol) & (th >= 1)).any(dim=1).cpu().numpy()
 
 
-def drive_engine(cfg, name, data, offset, measure_costs=False,
-                 xla_cum_macs=None):
+def drive_engine(cfg, name, data, offset=0, measure_costs=False,
+                 xla_cum_macs=None, pool=None, cpu_rows=64):
     """One engine phase; returns (launch counts, the engine).  With
-    ``xla_cum_macs`` (LeViT-256's) the installed count must agree with
-    it to LEVIT_MACS_RTOL."""
+    ``xla_cum_macs`` (LeViT-256's, the vision archs') the installed count
+    must agree with it to LEVIT_MACS_RTOL.  ``cfg`` may be an arch id.
+    Without ``pool`` the phase draws its images from ``data`` at
+    ``offset``: 512 calibration rows, then batches of 1, 64, 256, 1024
+    and 1500 (two chunks); with ``pool`` = (calibration images,
+    labels, served images) it calibrates on the first two and serves
+    prefixes of the third of 1, 64, 256, ... rows up to all of it.
+    ``cpu_rows`` of the card's answers are checked against the CPU (0:
+    none)."""
+    from repro_torch.configs import registry
     from repro_torch.convert import leaves
     from repro_torch.data.datasets import make_batch
     from repro_torch.engine import DartEngine
@@ -808,14 +877,24 @@ def drive_engine(cfg, name, data, offset, measure_costs=False,
     from repro_torch.models import get_family
 
     t_start = time.perf_counter()
+    arch = cfg
+    if isinstance(cfg, str):
+        cfg = registry.get(cfg)
     params = get_family(cfg).init(cfg, seed=0, device="cuda")
     n_params = sum(t.numel() for t in leaves(params))
-    eng = DartEngine.from_config(cfg, params)          # the card by default
+    eng = DartEngine.from_config(arch, params)         # the card by default
     check(eng.device.type == "cuda", "engine not on the card")
-    batches = [make_batch(data, range(offset + a, offset + a + n),
-                          split="eval")[0]
-               for a, n in ((0, 1), (1, 64), (65, 256), (321, 1024),
-                            (1345, 1500))]
+    if pool is None:
+        batches = [make_batch(data, range(offset + a, offset + a + n),
+                              split="eval")[0]
+                   for a, n in ((0, 1), (1, 64), (65, 256), (321, 1024),
+                                (1345, 1500))]
+        cal_data, cal_rows = data, 512
+    else:
+        cal_x, cal_y, served = pool
+        batches = [served[:n] for n in (1, 64, 256, 1024)
+                   if n <= len(served)]
+        cal_data, cal_rows = (cal_x, cal_y), len(cal_x)
 
     cum_macs = None
     if measure_costs:
@@ -831,11 +910,11 @@ def drive_engine(cfg, name, data, offset, measure_costs=False,
 
     dispatch.reset_launch_counts()
     t0 = time.perf_counter()
-    cal = eng.collect_calibration(data, n=512, batch=64)
+    cal = eng.collect_calibration(cal_data, n=cal_rows, batch=64)
     pol = eng.calibrate(cal)
     cal_s = time.perf_counter() - t0
-    expect = {"difficulty": 512 // 64, "exit_gate": 0, "exit_head": 0,
-              "paged_gather": 0}
+    expect = {"difficulty": -(-cal_rows // 64), "exit_gate": 0,
+              "exit_head": 0, "paged_gather": 0}
     # tau at each exit's median of conf - beta_diff*alpha: about half the
     # rows reaching a gate leave there, so compaction really runs
     bd = float(pol.beta_diff)
@@ -843,9 +922,10 @@ def drive_engine(cfg, name, data, offset, measure_costs=False,
                     for s in range(eng.n_exits - 1)], np.float32)
     eng.state = eng.state.with_policy(tau=tau)
 
+    edge_rtol = BF16_EDGE_RTOL if cfg.compute_dtype == torch.bfloat16 else 0.0
     rows, exits, total_edge = [], np.zeros(eng.n_exits, np.int64), 0
     for x in batches:
-        t_masked, t_comp = [], []
+        t_masked, t_comp, mode_rdiff = [], [], 0.0
         for _ in range(PASSES):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -860,8 +940,13 @@ def drive_engine(cfg, name, data, offset, measure_costs=False,
             expect["difficulty"] += 1 + len(eng.compactor.chunks(len(x)))
             for a, z in eng.compactor.chunks(len(x)):
                 expect["exit_gate"] += int(comp["exit_idx"][a:z].max()) + 1
-            edge = edge_rows(masked, EDGE)
+            edge = edge_rows(masked, EDGE, rtol=edge_rtol)
             ok = ~edge
+            same = comp["exit_idx"] == m_idx
+            conf_m = masked["conf"].cpu().numpy()
+            mode_rdiff = max(mode_rdiff, float(
+                (np.abs(comp["conf"] - conf_m) / conf_m)[same].max(
+                    initial=0.0)))
             check(np.array_equal(comp["exit_idx"][ok], m_idx[ok]),
                   f"{name}: masked and compacted exits differ, b={len(x)}")
             check(np.array_equal(comp["pred"][ok],
@@ -872,6 +957,8 @@ def drive_engine(cfg, name, data, offset, measure_costs=False,
             total_edge += int(edge.sum())
         # the first pass meets new shapes; the median of the rest
         rows.append({"batch": len(x), "edge_rows": int(edge.sum()),
+                     # conf of the two modes at the same exit, relative
+                     "max_mode_conf_rdiff": mode_rdiff,
                      "exit_counts": np.bincount(
                          comp["exit_idx"], minlength=eng.n_exits).tolist(),
                      "masked_samples_per_s":
@@ -885,6 +972,7 @@ def drive_engine(cfg, name, data, offset, measure_costs=False,
           f"{name}: a kernel never ran")
     check(int((exits > 0).sum()) >= 2, f"{name}: fewer than 2 exits taken")
     counting = one_row_counting(eng, batches[0])
+    profiled = infer_profile(eng, batches[-1]) if pool is not None else None
 
     eng.update()
     st = eng.stats()
@@ -892,16 +980,107 @@ def drive_engine(cfg, name, data, offset, measure_costs=False,
           f"{name}: served {st['served']}")
     check(np.array_equal(st["exit_counts"], exits),
           f"{name}: stats exit counts {st['exit_counts']} != {exits}")
-    cpu_check = check_against_cpu(cfg, params, eng, batches[1])
+    cpu_check = None
+    if cpu_rows:
+        x = batches[1][:cpu_rows]
+        cpu_check = (check_against_cpu_bf16(cfg, params, eng, x)
+                     if cfg.compute_dtype == torch.bfloat16
+                     else check_against_cpu(cfg, params, eng, x))
     emit(phase="engine", model=name, params=n_params,
+         dtype=str(cfg.compute_dtype).removeprefix("torch."),
+         img_res=data.img_res, calibration_rows=cal_rows,
          exits=eng.n_exits, calibration_s=cal_s, tau=tau.tolist(),
          joint_dp_tau=np.asarray(pol.tau).tolist(), launches=counts,
          edge_rows=total_edge, exit_counts=exits.tolist(),
          served=st["served"], active_strategy=st["active_strategy"],
          mean_macs=st["mean_macs"], cum_macs=cum_macs, batches=rows,
          one_row_counting=counting, cpu_reference=cpu_check,
+         profile=profiled,
          phase_s=time.perf_counter() - t_start)
     return counts, eng
+
+
+def draw_pool(data, start, n, workers=8):
+    """Eval rows [start, start + n) of ``data`` as (images, labels),
+    drawn in chunks of 64 by ``workers`` spawned processes (at 224
+    pixels one image is tens of ms of numpy)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.data.datasets import make_batch
+    chunks = [range(a, min(a + 64, start + n))
+              for a in range(start, start + n, 64)]
+    # a spawned worker runs the main script's file again, unless it has
+    # none: hidden for the pool's start, the workers import numpy and
+    # the dataset module only (not torch)
+    main = sys.modules["__main__"]
+    path = main.__dict__.pop("__file__", None)
+    try:
+        with ProcessPoolExecutor(
+                workers,
+                mp_context=multiprocessing.get_context("spawn")) as ex:
+            parts = list(ex.map(make_batch, [data] * len(chunks), chunks,
+                                ["eval"] * len(chunks)))
+    finally:
+        if path is not None:
+            main.__file__ = path
+    return (np.concatenate([x for x, _ in parts]),
+            np.concatenate([y for _, y in parts]))
+
+
+def drive_vision(data):
+    """The engine phases of the assigned vision archs on one pool of
+    224-pixel images; returns their launch counts, summed."""
+    t0 = time.perf_counter()
+    x, y = draw_pool(data, VISION_OFFSET, VISION_CAL_ROWS + 1024)
+    emit(phase="vision-pool", rows=len(x), img_res=data.img_res,
+         seconds=time.perf_counter() - t0)
+    cal = (x[:VISION_CAL_ROWS], y[:VISION_CAL_ROWS])
+    total = {}
+    for arch, largest in VISION_ARCHS:
+        counts, _ = drive_engine(
+            arch, arch, data, measure_costs=True,
+            xla_cum_macs=VISION_XLA_CUM_MACS[arch],
+            pool=(*cal, x[VISION_CAL_ROWS:VISION_CAL_ROWS + largest]),
+            cpu_rows=VISION_CPU_ROWS.get(arch, 0))
+        torch.cuda.empty_cache()
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    return total
+
+
+def infer_profile(eng, x):
+    """Where one masked ``infer`` of ``x`` spends its time: its wall ms
+    from the host's numpy images and from the same images already on the
+    card (the difference is the host-to-device copy), then, under
+    torch.profiler, the infer from the card: device ms, busy share and
+    the kernels that take the device time (kernels of one stream do not
+    overlap, so their summed time is busy time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    xd = torch.as_tensor(x, device="cuda")
+
+    def wall_ms(images):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.infer(images, mode="masked")["exit_idx"].cpu()
+        return 1e3 * (time.perf_counter() - t0)
+
+    wall_ms(x), wall_ms(xd)
+    host, card = wall_ms(x), wall_ms(xd)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled = wall_ms(xd)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    return {"rows": len(x), "wall_ms": host, "wall_ms_from_card": card,
+            "input_copy_ms": host - card, "device_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e3 / profiled,
+            "kernels": sum(e.count for e in kern),
+            "top_kernels_ms": [[e.key[:70], e.self_device_time_total / 1e3,
+                                e.count] for e in top]}
 
 
 def one_row_counting(eng, x):
@@ -927,6 +1106,53 @@ def one_row_counting(eng, x):
         on.append(per_s(True))
     return {"off_samples_per_s": float(np.median(off[1:])),
             "on_samples_per_s": float(np.median(on[1:]))}
+
+
+def check_against_cpu_bf16(cfg, params, eng, x):
+    """A bf16 model's answers on the card against the same engine on the
+    CPU (plain torch versions of both kernels): the exit logits within
+    BF16_LOGIT_TOL of the largest, conf within BF16_CONF_RTOL, and the
+    exits and preds equal outside rows that the two sides' own
+    difference may flip (counted)."""
+    from repro_torch.engine import DartEngine
+    cpu = DartEngine.from_config(eng.cfg, params, device="cpu", adapt=False)
+    cpu.state = cpu.state.with_policy(
+        tau=eng.state.tau.cpu(), coef=eng._coef().cpu(),
+        beta_diff=eng.state.beta_diff.cpu())
+    masked = cpu.infer(x, mode="masked")
+    card = eng.infer(x, mode="masked")
+    card = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in card.items()}
+    want = cpu._forward(cpu._input(x))["exit_logits"].float()
+    got = eng._forward(eng._input(x))["exit_logits"].float().cpu()
+    scale = float(want.abs().max())
+    logit_err = float((got - want).abs().max())
+    check(logit_err <= BF16_LOGIT_TOL * scale,
+          f"card and CPU bf16 logits differ by {logit_err} (max {scale})")
+    conf_card = card["conf_stack"]
+    conf_cpu = masked["conf_stack"]
+    conf_err = (conf_card - conf_cpu).abs()
+    check(bool((conf_err <= BF16_CONF_RTOL * conf_cpu).all()),
+          f"card and CPU bf16 conf differ by {float(conf_err.max())}")
+    idx = masked["exit_idx"]
+    rows = torch.arange(len(idx))
+    top2 = want[idx, rows].topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    row_err = (got - want).abs()[idx, rows].amax(dim=-1)
+    tie = gap <= 2 * row_err
+    th = masked["eff_thresholds"]
+    edge = ((conf_cpu[:-1].T - th).abs() <= 2 * conf_err[:-1].T).any(dim=1)
+    ok = (~tie & ~edge).numpy()
+    check(int((~ok).sum()) <= len(x) // 2,
+          f"card vs CPU: {int((~ok).sum())} of {len(x)} rows exempt")
+    check(np.array_equal(card["exit_idx"].numpy()[ok], idx.numpy()[ok]),
+          "card and CPU exits differ (bf16)")
+    check(np.array_equal(card["pred"].numpy()[ok],
+                         masked["pred"].numpy()[ok]),
+          "card and CPU preds differ (bf16)")
+    return {"rows": len(x), "edge_rows": int(edge.sum()),
+            "tie_rows": int(tie.sum()), "max_logit_err": logit_err,
+            "max_logit": scale, "max_conf_err": float(conf_err.max())}
 
 
 def check_against_cpu(cfg, params, eng, x):
@@ -1985,6 +2211,10 @@ def main() -> int:
     levit, _ = drive_engine(LEVIT_256, "levit-256", CIFAR, offset=11000,
                             measure_costs=True,
                             xla_cum_macs=LEVIT_XLA_CUM_MACS["levit-256"])
+    torch.cuda.empty_cache()
+    vision224 = dataclasses.replace(CIFAR, img_res=224)
+    vision = drive_vision(vision224)
+    torch.cuda.empty_cache()
     # train, then serve what was trained: the training step runs no
     # fused kernel; serving the trained ResNet-18 runs both of its own
     table1_cifar = dataclasses.replace(CIFAR, n_train=4096, n_eval=2048)
@@ -2033,6 +2263,29 @@ def main() -> int:
     gate_ms = time_ms(lambda: gkern.exit_gate_cuda(lg, th))
     diff_b, diff_by = difficulty_bound(1024, 32, 32, 3)
     diff_ms = time_ms(lambda: dkern.difficulty_cuda(img, **kw))
+    # the vision phases' shapes: (1024, 1000) bf16 logits, 224-pixel images
+    lg224, th224, _ = gate_inputs(1024, 1000, gen, 1000)
+    lg224 = lg224.to(torch.bfloat16)
+    img224 = torch.rand(1024, 224, 224, 3, device="cuda", generator=gen)
+    gate224_b, gate224_by = gate_bound(1024, 1000, 2)
+    diff224_b, diff224_by = difficulty_bound(1024, 224, 224, 3)
+    gate224 = {
+        "shape": [1024, 1000], "dtype": "bfloat16",
+        "gate_route": gkern.plan(1024, 1000, torch.bfloat16)[0],
+        "ms": time_ms(lambda: gkern.exit_gate_cuda(lg224, th224)),
+        "plain_ms": time_ms(lambda: gref.ref_exit_gate(lg224, th224)),
+        "library_ms": time_ms(
+            lambda: torch.softmax(lg224.float(), -1).max(-1)),
+        "bound_ms": gate224_b, "bound_by": gate224_by,
+        "launches": vision["exit_gate"]}
+    diff224 = {
+        "shape": [1024, 224, 224, 3],
+        "ms": time_ms(lambda: dkern.difficulty_cuda(img224, **kw)),
+        "plain_ms": time_ms(lambda: dref.ref_components(img224, **kw)),
+        "library_ms": None, "bound_ms": diff224_b, "bound_by": diff224_by,
+        "launches": vision["difficulty"]}
+    for row in (gate224, diff224):
+        row["bound_fraction"] = row["bound_ms"] / row["ms"]
     summary = {"kernels": [
         {"name": "exit_gate", "route": "cuda",
          "source": "src/repro_torch/csrc/exit_gate.cu",
@@ -2053,7 +2306,7 @@ def main() -> int:
          "gate_route": gkern.plan(1024, 10, torch.float32)[0],
          # the gate as the engine calls it, behind a torch kernel
          "after_op_ms": after_op_ms(lambda: gkern.exit_gate_cuda(lg, th)),
-         **gate_floor, "shape": [1024, 10]},
+         **gate_floor, "shape": [1024, 10], "vision224": gate224},
         {"name": "difficulty", "route": "cuda",
          "source": "src/repro_torch/csrc/difficulty.cu",
          "replaces": "src/repro/kernels/difficulty/difficulty_kernel.py:86",
@@ -2065,7 +2318,7 @@ def main() -> int:
          "plain_ms": time_ms(lambda: dref.ref_components(img, **kw)),
          "bound_ms": diff_b, "bound_by": diff_by,
          "bound_fraction": diff_b / diff_ms, "library_ms": None,
-         "shape": [1024, 32, 32, 3]},
+         "shape": [1024, 32, 32, 3], "vision224": diff224},
         {"name": "exit_head", "route": "cuda",
          "source": "src/repro_torch/csrc/exit_head.cu",
          "replaces": "src/repro/kernels/exit_head/exit_head_kernel.py:98",
@@ -2090,10 +2343,12 @@ def main() -> int:
          "shape": paged_main["shape"], "table": paged_main["table"],
          "dtype": paged_main["dtype"]},
     ]}
-    for k in summary["kernels"]:
+    for k in summary["kernels"] + [gate224, diff224]:
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                 "bound_ms")),
               "non-finite timing")
+    check(vision["exit_gate"] > 0 and vision["difficulty"] > 0,
+          f"the vision phases launched {vision}")
     print(nvidia_smi(), flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

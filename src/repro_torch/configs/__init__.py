@@ -1,1 +1,2 @@
-"""Model configurations of the port (the paper's testbeds)."""
+"""Model configurations of the port: the paper's testbeds and the
+assigned architectures the port has (``registry``)."""

@@ -6,10 +6,13 @@ or anything ``np.asarray`` reads) — ``Param`` leaves of
 ``value`` and ``axes`` attributes — and returns the port's tree on a
 device.  Dicts and lists keep their structure; convolution weights go
 from HWIO to OIHW.  A convolution weight is a 4-D leaf under the key
-``"w"`` (``layers.conv_init``'s key); other 4-D leaves, such as a
-layer-stacked attention weight ``wq`` (L, d, H, Dh), keep their
-layout, as do LeViT's 3-D attention weights ``wq``/``wk``/``wv``/``wo``
-and bias tables.  Linear weights keep their (in, out) layout, and the
+``"w"`` (``layers.conv_init``'s key): ViT's patch embedding, ConvNeXt's
+stem, downsampling and depthwise convolutions too (a depthwise
+(7, 7, 1, C) leaf becomes (C, 1, 7, 7), torch's grouped layout).  Other
+4-D leaves, such as a layer-stacked attention weight ``wq`` (L, d, H,
+Dh), keep their layout, as do the 3-D attention weights
+``wq``/``wk``/``wv``/``wo`` of LeViT and ViT, ViT's ``bq`` (H, Dh) and
+``pos`` (N, D), ConvNeXt's ``gamma``, and LeViT's bias tables.  Linear weights keep their (in, out) layout, and the
 models flatten NHWC before a fully connected layer, so no FC row needs
 permuting.  The LM tree (``models/transformer_lm.py``: embed, layers'
 norms, attention and SwiGLU weights, final and exit-head norms, the

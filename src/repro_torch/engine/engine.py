@@ -1,6 +1,7 @@
 """DartEngine — the façade over the DART lifecycle, on torch.
 
     engine = DartEngine.from_config(cfg, params)        # wire up (cuda)
+    engine = DartEngine.from_config("vit-s16", params)  # or an arch id
     engine.calibrate(cal_data)                          # section II.B
     out = engine.infer(x, mode="compacted")             # Alg. 1 serving
     engine.update()                                     # section II.C
@@ -35,6 +36,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch import device as DEV
+from repro_torch.configs import registry as CFG_REGISTRY
 from repro_torch.core import adaptive as AD
 from repro_torch.core import difficulty as DIFF
 from repro_torch.core import routing as R
@@ -103,7 +105,11 @@ class DartEngine:
                     n_classes: int | None = None,
                     beta_opt: float | None = None, **kw) -> "DartEngine":
         """Build an engine from a model config + params on ``device``
-        (``None`` = the CUDA card; raises when CUDA is absent)."""
+        (``None`` = the CUDA card; raises when CUDA is absent).
+        ``model_cfg`` may be a config object or an arch id resolved by
+        ``configs.registry`` (e.g. ``"vit-s16"``)."""
+        if isinstance(model_cfg, str):
+            model_cfg = CFG_REGISTRY.get(model_cfg)
         dev = DEV.resolve(device)
         family = get_family(model_cfg)
         e = family.num_stages(model_cfg)
@@ -159,15 +165,23 @@ class DartEngine:
     # ------------------------------------------------------------------
     # section II.B — calibration / policy fitting
     # ------------------------------------------------------------------
-    def collect_calibration(self, data_cfg, *, n=512, split="eval",
+    def collect_calibration(self, data, *, n=512, split="eval",
                             offset=0, batch=64) -> CalibrationData:
         """Run the model over ``n`` samples and build per-exit calibration
-        measurements (confidence, correctness, difficulty, entropy)."""
-        from repro_torch.data.datasets import make_batch
+        measurements (confidence, correctness, difficulty, entropy).
+        ``data``: a ``DatasetConfig`` the samples are drawn from, or an
+        (images, labels) pair of arrays already drawn (all of them are
+        used; ``n``, ``split`` and ``offset`` are then ignored)."""
+        if isinstance(data, tuple):
+            images, y_all = data
+            batches = ((images[a:a + batch], y_all[a:a + batch])
+                       for a in range(0, len(images), batch))
+        else:
+            from repro_torch.data.datasets import make_batch
+            batches = (make_batch(data, range(a, a + batch), split=split)
+                       for a in range(offset, offset + n, batch))
         confs, ents, corrects, alphas, labels = [], [], [], [], []
-        for start in range(offset, offset + n, batch):
-            x, y = make_batch(data_cfg, range(start, start + batch),
-                              split=split)
+        for x, y in batches:
             xt = self._input(x)
             logits = self._forward(xt)["exit_logits"]       # (E, B, C)
             conf = self._conf_fn(logits).cpu().numpy()
@@ -188,8 +202,9 @@ class DartEngine:
 
     def calibrate(self, data, **kw) -> PolicyResult:
         """Fit the exit policy with the registered optimizer and install
-        it.  ``data``: a :class:`CalibrationData`, or a ``DatasetConfig``
-        (the engine collects measurements itself)."""
+        it.  ``data``: a :class:`CalibrationData`, or what
+        :meth:`collect_calibration` takes (the engine collects
+        measurements itself)."""
         if not isinstance(data, CalibrationData):
             data = self.collect_calibration(data, **{
                 k: kw.pop(k) for k in ("n", "split", "offset", "batch")

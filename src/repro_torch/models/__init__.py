@@ -3,13 +3,16 @@
 ``FAMILIES[family]`` exposes ``init(cfg, seed=, device=)``, ``forward``
 (all exits) and the stem/stage/exit functions the DART serving engine
 drives; ``staged`` says whether a family has them.  The port carries
-the paper's AlexNet, VGG, ResNet and LeViT testbeds.
+the paper's AlexNet, VGG, ResNet and LeViT testbeds, and the assigned
+ViT (ViT-S/16, ViT-H/14), ConvNeXt (ConvNeXt-B) and ResNet-152.
 """
 from __future__ import annotations
 
-from repro_torch.models import cnn_zoo, resnet
+from repro_torch.models import cnn_zoo, convnext, resnet, vit
 from repro_torch.models.cnn_zoo import AlexNetConfig, LeViTConfig, VGGConfig
+from repro_torch.models.convnext import ConvNeXtConfig
 from repro_torch.models.resnet import ResNetConfig
+from repro_torch.models.vit import ViTConfig
 
 
 class _Family:
@@ -27,6 +30,13 @@ class _Family:
 
 
 FAMILIES = {
+    "vit": _Family(vit.vit_init, vit.vit_forward, stem=vit.apply_stem,
+                   stage=vit.apply_stage, exit_=vit.apply_exit,
+                   n_stages=vit.num_stages),
+    "convnext": _Family(convnext.convnext_init, convnext.convnext_forward,
+                        stem=convnext.apply_stem, stage=convnext.apply_stage,
+                        exit_=convnext.apply_exit,
+                        n_stages=convnext.num_stages),
     "resnet": _Family(resnet.resnet_init, resnet.resnet_forward,
                       stem=resnet.apply_stem, stage=resnet.apply_stage,
                       exit_=resnet.apply_exit, n_stages=resnet.num_stages),
@@ -49,7 +59,8 @@ FAMILIES = {
 
 
 def family_of(cfg) -> str:
-    return {ResNetConfig: "resnet", AlexNetConfig: "alexnet",
+    return {ViTConfig: "vit", ConvNeXtConfig: "convnext",
+            ResNetConfig: "resnet", AlexNetConfig: "alexnet",
             VGGConfig: "vgg", LeViTConfig: "levit"}[type(cfg)]
 
 
@@ -57,5 +68,6 @@ def get_family(cfg) -> _Family:
     return FAMILIES[family_of(cfg)]
 
 
-__all__ = ["cnn_zoo", "resnet", "AlexNetConfig", "VGGConfig", "LeViTConfig",
-           "ResNetConfig", "FAMILIES", "family_of", "get_family"]
+__all__ = ["cnn_zoo", "convnext", "resnet", "vit", "AlexNetConfig",
+           "VGGConfig", "LeViTConfig", "ConvNeXtConfig", "ResNetConfig",
+           "ViTConfig", "FAMILIES", "family_of", "get_family"]

@@ -12,6 +12,12 @@ sizes up (28 -> 14 -> 7 -> 4), where torch's defaults would floor.
 LeViT's token layers keep the JAX package's forms where torch's
 defaults differ: ``layernorm`` with eps 1e-6 in float32, the tanh
 ``gelu``; ``global_avg_pool`` takes (B, N, D) tokens as well as NCHW.
+ViT and ConvNeXt add ``patch_embed`` (a VALID convolution of stride
+``patch``, then (B, h*w, D) tokens in the row-major order of the NHWC
+map), ``mlp`` (up, GELU, down) and ``mha_init``/``mha_apply``: wq/wk/wv
+(D, H, Dh) and wo (H, Dh, D), with biases on q and on the output only,
+as in the JAX package; ``conv2d`` takes ``padding="VALID"`` and
+``groups`` (ConvNeXt's depthwise 7x7, weight (C, 1, 7, 7)).
 
 Init draws from an explicit ``torch.Generator``: He-normal convolutions
 and truncated-normal (std 0.02, cut at 2 std) linears, the same
@@ -20,12 +26,14 @@ distributions as the JAX init, not the same numbers.
 ``count_macs()`` counts the multiply-accumulates of ``conv2d``,
 ``linear`` and ``einsum`` inside its scope; the token layers (LeViT's
 ``layernorm``, ``gelu``, ``hard_swish``, and ``count_flops`` at its
-softmax, batchnorm, pooling and residual adds) add their elementwise
-flops as XLA's cost analysis counts them, halved (the CNNs' count
-leaves them out).  A convolution counts only the kernel taps
-that land inside its unpadded input, as XLA's cost analysis does, so
-the SAME padding adds nothing (a counter at the ``aten.convolution``
-level would see ``F.pad``'s zeros as image).
+softmax, batchnorm, pooling and residual adds; ``dense_attention``'s
+scale and softmax, ``mha_apply``'s and ``mlp``'s bias adds) add their
+elementwise flops as XLA's cost analysis counts them, halved (the
+CNNs' count leaves them out).  A convolution counts only the kernel
+taps that land inside its unpadded input, as XLA's cost analysis does,
+so the SAME padding adds nothing (a counter at the ``aten.convolution``
+level would see ``F.pad``'s zeros as image); a grouped convolution
+counts the input channels of one group.
 
 The LM subset keeps the JAX package's layouts and roundings: rmsnorm in
 fp32 with eps 1e-6 and a cast back; the half-split ("llama") rope with
@@ -50,9 +58,10 @@ from repro_torch.kernels import dispatch as KD
 
 def trunc_normal(shape, generator, *, std=0.02, device,
                  dtype=torch.float32):
-    t = torch.empty(shape, dtype=dtype, device=device)
+    """Drawn in float32, then cast to ``dtype``."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
     return torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
-                                       generator=generator)
+                                       generator=generator).to(dtype)
 
 
 def he_normal(shape, generator, fan_in, *, device, dtype=torch.float32):
@@ -92,6 +101,18 @@ def count_flops(flops):
         c.macs += flops / 2
 
 
+def count_converts(*tensors):
+    """Add the converts of one bf16 op to an open ``count_macs`` scope:
+    XLA's CPU backend has no bf16 arithmetic, so it converts each bf16
+    operand of an op to float32 and the result back to bf16, and its
+    cost analysis counts a flop an element for each convert.  Float32
+    tensors add nothing."""
+    c = _COUNTER.get()
+    if c is not None:
+        c.macs += sum(t.numel() for t in tensors
+                      if t.dtype == torch.bfloat16) / 2
+
+
 @contextlib.contextmanager
 def count_macs():
     """``with count_macs() as c: ...`` -- ``c.macs`` after the block."""
@@ -110,6 +131,7 @@ def linear(p, x):
     y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
+    count_converts(x, x, p["w"], y)     # activations: rounded, then in
     return y
 
 
@@ -117,12 +139,18 @@ def einsum(spec: str, a, b):
     """``torch.einsum`` of two operands, counted: the product of every
     index's size, as XLA counts a ``dot_general`` (LeViT's attention
     products; ``linear`` counts the plain matmuls)."""
+    y = torch.einsum(spec, a, b)
     c = _COUNTER.get()
     if c is not None:
-        sizes = dict(zip(spec.split("->")[0].replace(",", ""),
+        ins = spec.split("->")[0]
+        sizes = dict(zip(ins.replace(",", ""),
                          tuple(a.shape) + tuple(b.shape)))
         c.macs += math.prod(sizes.values())
-    return torch.einsum(spec, a, b)
+        # an operand with the batch index is an activation: rounded to
+        # bf16 and converted in (two converts), a weight converted in
+        count_converts(y, *(t for t, sub in zip((a, b), ins.split(","))
+                            for _ in range(1 + ("b" in sub))))
+    return y
 
 
 def layernorm_init(dim, dtype, *, device):
@@ -134,6 +162,7 @@ def layernorm(p, x, eps=1e-6):
     """Over the last axis in float32, cast back: the JAX package's chain
     and its eps (torch's ``layer_norm`` defaults to 1e-5)."""
     count_flops(8 * x.numel() + 2 * (x.numel() // x.shape[-1]))
+    count_converts(x, p["scale"], p["bias"], x)     # in, params, out
     dtype = x.dtype
     x = x.float()
     mu = x.mean(dim=-1, keepdim=True)
@@ -146,6 +175,9 @@ def gelu(x):
     """The tanh form, ``jax.nn.gelu``'s default (torch's is the exact
     erf form)."""
     count_flops(8 * x.numel())
+    if x.dtype == torch.bfloat16:
+        # each of its nine ops rounds its result to bf16 and back
+        count_flops(18 * x.numel())
     return F.gelu(x, approximate="tanh")
 
 
@@ -156,11 +188,12 @@ def hard_swish(x):
 
 
 def conv_init(generator, kh, kw, cin, cout, *, device,
-              dtype=torch.float32, bias=True):
-    """{"w": (cout, cin, kh, kw), "b": (cout,)}, He-normal; no "b" when
-    ``bias`` is false."""
-    p = {"w": he_normal((cout, cin, kh, kw), generator, kh * kw * cin,
-                        device=device, dtype=dtype)}
+              dtype=torch.float32, bias=True, groups=1):
+    """{"w": (cout, cin // groups, kh, kw), "b": (cout,)}, He-normal
+    over the fan-in of one group; no "b" when ``bias`` is false."""
+    p = {"w": he_normal((cout, cin // groups, kh, kw), generator,
+                        kh * kw * cin // groups, device=device,
+                        dtype=dtype)}
     if bias:
         p["b"] = torch.zeros(cout, device=device, dtype=dtype)
     return p
@@ -183,24 +216,37 @@ def _pad_same(x, kh, kw, stride, value=0.0):
     return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), (0, 0)
 
 
-def _taps(size: int, window: int, stride: int) -> int:
-    """Taps of a SAME window along one axis that land inside the input,
-    summed over the output positions."""
+def _taps(size: int, window: int, stride: int, padding="SAME") -> int:
+    """Taps of a window along one axis that land inside the input,
+    summed over the output positions (VALID: every tap of every
+    output)."""
+    if padding == "VALID":
+        return ((size - window) // stride + 1) * window
     lo = same_pads(size, window, stride)[0]
     return sum(max(min(o * stride - lo + window, size)
                    - max(o * stride - lo, 0), 0)
                for o in range(-(-size // stride)))
 
 
-def conv2d(p, x, *, stride=1):
-    """NCHW convolution with JAX's SAME padding; ``p["b"]`` optional."""
+def conv2d(p, x, *, stride=1, padding="SAME", groups=1):
+    """NCHW convolution with JAX's ``"SAME"`` or ``"VALID"`` padding and
+    ``groups`` feature groups; ``p["b"]`` optional."""
     cout, cin, kh, kw = p["w"].shape
     c = _COUNTER.get()
     if c is not None:
-        c.macs += (x.shape[0] * _taps(x.shape[2], kh, stride)
-                   * _taps(x.shape[3], kw, stride) * cin * cout)
-    x, pad = _pad_same(x, kh, kw, stride)
-    return F.conv2d(x, p["w"], p.get("b"), stride=stride, padding=pad)
+        c.macs += (x.shape[0] * _taps(x.shape[2], kh, stride, padding)
+                   * _taps(x.shape[3], kw, stride, padding) * cin * cout)
+    xin = x
+    if padding == "SAME":
+        x, pad = _pad_same(x, kh, kw, stride)
+    elif padding == "VALID":
+        pad = 0
+    else:
+        raise ValueError(f"padding {padding!r}; known: SAME, VALID")
+    y = F.conv2d(x, p["w"], p.get("b"), stride=stride, padding=pad,
+                 groups=groups)
+    count_converts(xin, p["w"], y)
+    return y
 
 
 def max_pool(x, window, stride):
@@ -213,6 +259,81 @@ def max_pool(x, window, stride):
 def global_avg_pool(x):
     """(B, C, H, W) -> (B, C), or (B, N, D) tokens -> (B, D)."""
     return x.mean(dim=(2, 3) if x.dim() == 4 else 1)
+
+
+# ---------------------------------------------------------------------------
+# ViT / ConvNeXt blocks (repro/models/layers.py: mlp, patch_embed, mha)
+# ---------------------------------------------------------------------------
+
+def add_bias(x, b):
+    """``x + b``, counted as XLA counts a broadcast add (one flop an
+    element)."""
+    count_flops(x.numel())
+    y = x + b
+    count_converts(x, b, y)
+    return y
+
+
+def linear_biased(p, x):
+    """``linear`` with its bias add counted too (``linear`` counts the
+    products only), as XLA counts the JAX package's separate add."""
+    y = linear(p, x)
+    if "b" in p:
+        count_flops(y.numel())
+        count_converts(y, p["b"], y)
+    return y
+
+
+def mlp_init(generator, dim, hidden, *, device, dtype=torch.float32):
+    kw = dict(device=device, dtype=dtype)
+    return {"up": linear_init(generator, dim, hidden, **kw),
+            "down": linear_init(generator, hidden, dim, **kw)}
+
+
+def mlp(p, x):
+    """up, the tanh GELU, down (``act="gelu"``, the only one ViT uses)."""
+    return linear_biased(p["down"], gelu(linear_biased(p["up"], x)))
+
+
+def patch_embed_init(generator, patch, cin, dim, *, device,
+                     dtype=torch.float32):
+    return {"proj": conv_init(generator, patch, patch, cin, dim,
+                              device=device, dtype=dtype)}
+
+
+def patch_embed(p, x, patch):
+    """NCHW images -> (B, h*w, D) tokens: a VALID convolution of stride
+    ``patch``, its bias added, then the NHWC map flattened row by row
+    (the JAX package's token order)."""
+    proj = p["proj"]
+    y = add_bias(conv2d({"w": proj["w"]}, x, stride=patch,
+                        padding="VALID"), proj["b"][:, None, None])
+    return y.permute(0, 2, 3, 1).reshape(y.shape[0], -1, y.shape[1])
+
+
+def mha_init(generator, d_model, n_heads, *, device, dtype=torch.float32,
+             head_dim=None):
+    """wq/wk/wv (D, H, Dh), wo (H, Dh, D), truncated normal; zero biases
+    on q (H, Dh) and on the output (D,) only, as the JAX package."""
+    hd = head_dim or d_model // n_heads
+
+    def w(*shape):
+        return trunc_normal(shape, generator, device=device, dtype=dtype)
+    return {"wq": w(d_model, n_heads, hd), "wk": w(d_model, n_heads, hd),
+            "wv": w(d_model, n_heads, hd), "wo": w(n_heads, hd, d_model),
+            "bq": torch.zeros((n_heads, hd), device=device, dtype=dtype),
+            "bo": torch.zeros(d_model, device=device, dtype=dtype)}
+
+
+def mha_apply(p, x):
+    """Non-causal multi-head attention over (B, S, D) tokens: q with its
+    bias, k and v without, ``dense_attention`` (float32 softmax cast
+    back), wo, then the output bias."""
+    q = add_bias(einsum("bsd,dhk->bshk", x, p["wq"]), p["bq"])
+    k = einsum("bsd,dhk->bshk", x, p["wk"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
+    o = dense_attention(q, k, v)
+    return add_bias(einsum("bshk,hkd->bsd", o, p["wo"]), p["bo"])
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +404,10 @@ def dense_attention(q, k, v, *, causal=False, kv_len=None, scale=None):
     k = _repeat_kv(k, h // hkv)
     v = _repeat_kv(v, h // hkv)
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    scores = einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    # the scale, then softmax: max, subtract, sum, divide (XLA counts
+    # each reduction of n elements as n - 1 flops)
+    count_flops(5 * scores.numel() - 2 * (scores.numel() // scores.shape[-1]))
     skv = k.shape[1]
     if causal:
         qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
@@ -295,7 +419,7 @@ def dense_attention(q, k, v, *, causal=False, kv_len=None, scale=None):
             ki[None, None, None, :] >= kv_len[:, None, None, None],
             -math.inf)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+    return einsum("bhqk,bkhd->bqhd", w, v)
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, scale=None):

@@ -9,6 +9,9 @@ batchnorm: in inference mode on the serving path, in train mode under
 "stages/{s}/{b}/bn1", ...).  ``apply_stem`` and ``resnet_forward`` take
 NHWC images; activations are NCHW between stages.  The stride-2 blocks
 and the 7x7 stride-2 stem pad to JAX's SAME split (``layers.conv2d``).
+Inside a ``layers.count_macs`` scope the batchnorms, ReLUs and residual
+adds add their flops as XLA's cost analysis counts them, the chain XLA
+recomputes in each identity block included (``_TAIL_FLOPS``).
 """
 from __future__ import annotations
 
@@ -63,22 +66,32 @@ def _block_init(gen, cin, planes, cfg, stride, kw):
     return p
 
 
+def _relu(x):
+    L.count_flops(x.numel())
+    return torch.relu(x)
+
+
 def _block_apply(p, x, cfg, stride, *, train=False, updates=None, name=""):
     def bn(key, h):
+        # subtract, scale, scale, shift an element; var + eps a channel
+        L.count_flops(4 * h.numel() + h.shape[1])
+        L.count_converts(h, p[key]["scale"], p[key]["bias"], h)
         return bn_apply(p[key], h, train=train, updates=updates,
                         name=f"{name}/{key}")
 
     if cfg.block == "bottleneck":
-        h = torch.relu(bn("bn1", L.conv2d(p["conv1"], x)))
-        h = torch.relu(bn("bn2", L.conv2d(p["conv2"], h, stride=stride)))
+        h = _relu(bn("bn1", L.conv2d(p["conv1"], x)))
+        h = _relu(bn("bn2", L.conv2d(p["conv2"], h, stride=stride)))
         h = bn("bn3", L.conv2d(p["conv3"], h))
     else:
-        h = torch.relu(bn("bn1", L.conv2d(p["conv1"], x, stride=stride)))
+        h = _relu(bn("bn1", L.conv2d(p["conv1"], x, stride=stride)))
         h = bn("bn2", L.conv2d(p["conv2"], h))
     idn = x
     if "down_conv" in p:
         idn = bn("down_bn", L.conv2d(p["down_conv"], x, stride=stride))
-    return torch.relu(h + idn)
+    L.count_flops(h.numel())                        # the residual add
+    L.count_converts(h, idn, h)
+    return _relu(h + idn)
 
 
 def _stride(stage: int, block: int) -> int:
@@ -124,15 +137,33 @@ def apply_stem(params, images, cfg: ResNetConfig, *, train=False,
     return x
 
 
+#: XLA fuses the elementwise chain that ends a block (its last
+#: batchnorm, the shortcut's, the residual add and the ReLU: flops an
+#: element, float32 and bf16 with its converts) into the next block's
+#: residual add as well as computing it for the next convolution, so
+#: its cost analysis counts the chain again in each identity block,
+#: compounding along a stage (tools/xla_cum_macs.py at depth k: the
+#: stage's flops grow by 6 (bf16: 12) an element more with each block)
+_TAIL_FLOPS = {"down": (10, 17), "identity": (6, 12)}
+
+
 def apply_stage(params, x, stage: int, cfg: ResNetConfig, *, train=False,
                 updates=None):
+    chain = 0                   # flops an element of x's fused chain
     for b, bp in enumerate(params["stages"][stage]):
+        kind = "down" if "down_conv" in bp else "identity"
+        if kind == "down":
+            chain = 0
+        L.count_flops(chain * x.numel())
         x = _block_apply(bp, x, cfg, _stride(stage, b), train=train,
                          updates=updates, name=f"stages/{stage}/{b}")
+        chain += _TAIL_FLOPS[kind][x.dtype == torch.bfloat16]
     return x
 
 
 def apply_exit(params, x, stage: int, cfg: ResNetConfig):
+    L.count_flops(x.numel())                        # the pooling
+    L.count_converts(x)
     h = L.global_avg_pool(x)
     if stage == len(cfg.depths) - 1:
         return L.linear(params["head"], h)

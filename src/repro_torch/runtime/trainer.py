@@ -1,11 +1,13 @@
 """The classifier training loop with the paper's multi-exit objective.
 
 ``Trainer(cfg, TrainConfig(...), data_cfg).run()`` trains an AlexNet,
-VGG, ResNet or LeViT of ``repro_torch.models`` on one device with the Eq. 18
-loss (``core.routing.multi_exit_xent``), AdamW or SGD under a
-warmup-cosine schedule with the batchnorm running statistics masked
-out, and microbatch accumulation; a step then merges the train-mode
-batchnorm statistics into the tree.  ``trainer.params`` is a tree that
+VGG, ResNet, LeViT, ViT or ConvNeXt of ``repro_torch.models`` on one
+device with the Eq. 18 loss (``core.routing.multi_exit_xent``), AdamW
+or SGD under a warmup-cosine schedule with the batchnorm running
+statistics masked out, and microbatch accumulation; a step then merges
+the train-mode batchnorm statistics into the tree.  ViT-H/14's
+``remat`` recomputes each block in the backward pass
+(``models/vit.py``).  ``trainer.params`` is a tree that
 ``DartEngine.from_config`` serves as it is: its leaves never require
 grad.
 

@@ -284,14 +284,15 @@ def test_update_and_stats_match_jax(engines, median_tau):
                                    atol=1e-6, rtol=0, err_msg=k)
 
 
-# XLA's cost analysis also counts batchnorm, ReLU, bias and residual
-# adds, which count_macs leaves out: 0.4-0.7 % of ResNet-18's raw MACs
-# at full width; normalised, within 0.5 % for the tiny AlexNet and VGG
+# XLA's cost analysis also counts bias adds and ReLUs, which count_macs
+# leaves out for AlexNet and VGG: normalised, within 0.5 % for the tiny
+# ones.  ResNet's batchnorm, ReLU and residual adds count_macs counts
+# (ResNet-18 within 5 MACs of XLA, at width 8 and at full width)
 COST_RTOL = 0.01
-# except at width 8: the elementwise flops grow with the width, the
-# convolutions' MACs with its square, so XLA counts 5.3 % more than the
-# convolutions at ResNet-18-narrow's first exit and 3.3 % at its last;
-# normalised, 1.9 % apart at the first exit (measured, seed 7)
+# before ResNet's elementwise work was counted, XLA counted 5.3 % more
+# than the convolutions at ResNet-18-narrow's first exit and 3.3 % at
+# its last (the elementwise flops grow with the width, the MACs with its
+# square); normalised, 1.9 % apart at the first exit (measured, seed 7)
 COST_RTOL_CASE = {"resnet18-narrow": 0.025}
 
 
