@@ -134,6 +134,31 @@ Phases, each printing one JSON line:
    ``repro_torch.obs`` on, whose spans say where the latency goes
    (admission, submit to dispatch, dispatch to completion).  The phase
    must take at most 60 s.
+   resilience — the same trained ResNet-18 and policy: (a) its
+   ``EngineState`` saved and restored into a fresh engine, every leaf
+   bit-equal and the next masked infer equal bit for bit (save/restore
+   ms, MB); (b) ``PooledDartServer`` over two engines in compacted mode
+   (every engine call gates through ``exit_gate``), 384 single images
+   submitted back to back, once without faults and once under a seeded
+   ``FaultPlan`` (a straggler the pool hedges, a NaN output it
+   quarantines, a raise at dispatch it retries, a queue stall, an
+   engine death): every future resolves exactly once, requests no fault
+   or rung touched equal their bucket served by one engine alone bit for
+   bit, one ``difficulty`` launch per submit, ``exit_gate`` launches
+   equal to the stages the engine calls gated; samples/s, retries,
+   hedges, quarantines, requeues, the rung timeline and the ms from a
+   death to the next success; (c) two engines behind four pool slots
+   drained to rung 4 (priority 0 shed, the requeue bounded) and joined
+   back from a snapshot (the joining engine's state is the snapshot's):
+   rungs 1-2-3-4, then 3-2-1-0; at rung 3 no row of a 64-row bucket
+   leaves past the cap stage, in either mode; (d) the trainer's
+   crash-resume at Table I's batch (8 steps straight against 4 + crash
+   + resume 4): the restored tree bit-equal to the one saved; with
+   cuDNN's default algorithms the resumed losses within RES_LOSS_RTOL
+   of the straight run's, with its deterministic ones the resumed
+   losses and final tree bit-equal to it; and the checkpoint's MB and
+   save, async copy, background write and restore ms.  Checkpoints go
+   under ``build/`` and are removed.
    table2 — Table II's protocol (benchmarks/table2.py) on weights the
    port trained: LeViT-128S, LeViT-192 and LeViT-256 at full width, each
    trained as in the train phase (120 steps, one ``table2-train`` line
@@ -169,7 +194,8 @@ Phases, each printing one JSON line:
    head) or as neither.
 8. the kernels summary line, every number in it measured or computed
    in this run (the gate's and the difficulty kernel's launches in the
-   LeViT-256 engine phase and in table2 beside VGG-16's; under
+   serving, resilience (the faulted run), LeViT-256 engine and table2
+   phases beside VGG-16's; under
    ``vision224`` each one timed at the vision phases' shape, the gate
    at (1024, 1000) bf16 and ``difficulty`` at (1024, 224, 224, 3), with
    the launches of those phases), then the ``ok`` line.
@@ -301,6 +327,24 @@ SERVE_POOL = 1024
 SERVE_POOL_OFFSET = 3072
 SERVE_BASELINE = 1000
 SERVE_PHASE_S = 60.0
+
+#: the resilience phase: single eval images (the serving pool) through a
+#: PooledDartServer over two engines in compacted mode (every call gates
+#: through the exit_gate kernel), buckets of at most RES_MAX_BATCH so
+#: that the pool makes many calls; the seeded fault plan's kinds; the
+#: trainer crash-resume's steps and crash step (Table I's batch and lr),
+#: and the resumed losses' tolerance against the straight run's under
+#: cuDNN's default algorithms (card training is then not bit-repeatable
+#: after step 1: its backward convolutions sum in a varying order; with
+#: its deterministic algorithms the resume is held bit for bit)
+RES_REQUESTS = 384
+RES_MAX_BATCH = 16
+RES_STRAGGLER_S = 0.5
+RES_STALL_S = 0.02
+RES_STEPS = 8
+RES_FAIL_AT = 4
+RES_LOSS_RTOL = 1e-2
+RES_REPS = 5
 
 #: the train phase: Table I's protocol (benchmarks/table1.py,
 #: benchmarks/common.py::train_model): synth-CIFAR with 4096 training and
@@ -1867,6 +1911,468 @@ def drive_serving(cfg, params, policy_state, cum_costs, data):
     return launches
 
 
+def res_plan():
+    """The resilience phase's fault plan: a straggler (delay) that the
+    pool hedges, a NaN output it quarantines, a raise out of the
+    dispatch cut point it retries, a queue stall at completion, and an
+    engine death late enough that the NaN's engine serves again first."""
+    from repro_torch.runtime.chaos import FaultPlan, FaultSpec
+    return FaultPlan([
+        FaultSpec("straggler", "step", 2, engine="e0",
+                  delay_s=RES_STRAGGLER_S),
+        FaultSpec("engine_death", "dispatch", 3, engine="e0"),
+        FaultSpec("nan_output", "step", 5, engine="e1"),
+        FaultSpec("queue_stall", "complete", 10, delay_s=RES_STALL_S),
+        FaultSpec("engine_death", "step", 8, engine="e0")])
+
+
+def log_engine_calls(engines):
+    """Wrap each engine's ``infer`` to note the calls that reached an
+    engine and the stages each gated (0 for a masked call): a list of
+    (engine, stages)."""
+    import threading
+    lock, calls = threading.Lock(), []
+    for name, eng in engines.items():
+        orig = eng.infer
+
+        def infer(x, *a, _orig=orig, _name=name, **kw):
+            out = _orig(x, *a, **kw)
+            stages = int(np.max(out["exit_idx"])) + 1 \
+                if kw.get("mode") == "compacted" else 0
+            with lock:
+                calls.append((_name, stages))
+            return out
+        eng.infer = infer
+    return calls
+
+
+def pooled_run(engines, pool_imgs, idx, plan):
+    """One PooledDartServer run over ``engines`` (name -> DartEngine):
+    ``idx`` single images submitted back to back to the started server,
+    then every future waited for.  Returns (line, futures, the bucket of
+    each request id, the server, the engine calls)."""
+    import threading
+    from concurrent.futures import wait
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.runtime.chaos import FaultInjector, NullInjector
+    from repro_torch.serving import (EnginePool, PooledDartServer,
+                                     ResilienceConfig, SchedulerConfig)
+    inj = FaultInjector(plan) if plan is not None else NullInjector()
+    pool = EnginePool(engines, ResilienceConfig(), injector=inj)
+    # each pool worker thread's first card call creates its cuBLAS and
+    # cuDNN handles (slow): make it before the run, one engine call per
+    # thread, outside the fault plan and the launch counts
+    barrier = threading.Barrier(len(engines))
+
+    def warm(eng):
+        barrier.wait(timeout=60)
+        eng.infer(pool_imgs[:1], mode="compacted", record=False)
+    for f in [pool._exec.submit(warm, e) for e in engines.values()]:
+        f.result(timeout=120)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    calls = log_engine_calls(engines)
+    # every request admitted: the lane may hold the whole burst
+    srv = PooledDartServer(pool, SchedulerConfig(
+        mode="compacted", max_batch=RES_MAX_BATCH, edges=(),
+        max_queue=len(idx)))
+    buckets = {}
+    infer_batch = srv._infer_batch
+
+    def logged(reqs, x, alpha):
+        for i, r in enumerate(reqs):
+            buckets[r.rid] = (reqs, x, alpha, i)
+        return infer_batch(reqs, x, alpha)
+    srv._infer_batch = logged
+    resolutions = {}
+    futs = []
+    t0 = time.perf_counter()
+    for rid, i in enumerate(idx):
+        f = srv.submit(pool_imgs[i])
+        f.add_done_callback(
+            lambda _f, rid=rid: resolutions.__setitem__(
+                rid, resolutions.get(rid, 0) + 1))
+        futs.append(f)
+    _, pending = wait(futs, timeout=120)
+    seconds = time.perf_counter() - t0
+    check(not pending, f"resilience: {len(pending)} futures never resolved")
+    srv.close()
+    pool.close()
+    pool._exec.shutdown(wait=True)      # a held straggler's call ends too
+    torch.cuda.synchronize()
+    check(sorted(resolutions) == list(range(len(idx)))
+          and set(resolutions.values()) == {1},
+          "resilience: a future did not resolve exactly once")
+    launches = dispatch.launch_counts()
+    st = srv.stats()["pool"]
+    errors = [type(f.exception()).__name__ for f in futs
+              if f.exception() is not None]
+    n_ok = len(futs) - len(errors)
+    line = {"requests": len(idx), "completed": n_ok,
+            "failed": len(errors),
+            "errors": {e: errors.count(e) for e in sorted(set(errors))},
+            "seconds": seconds,
+            "samples_per_s": n_ok / seconds,
+            "calls": st["calls"], "engine_calls": len(calls),
+            "retries": st["retries"], "hedges": st["hedges"],
+            "stragglers": st["stragglers"],
+            "quarantined": st["quarantined"], "requeues": st["requeues"],
+            "deaths": st["deaths"], "faults_injected": st["faults_injected"],
+            "hedge_deadline_ms_at_end": st["straggler_deadline_ms"],
+            "touched_requests": st["touched_rids"],
+            "engines": st["engines"],
+            "rung_timeline": [(h["from"], h["to"])
+                              for h in st["rung_history"]],
+            "recovery_ms": [None if r is None else r * 1e3
+                            for r in pool.recovery_s()],
+            "trace": [(t["point"], t["kind"], t["engine"])
+                      for t in inj.trace], "launches": launches}
+    return line, futs, buckets, srv, calls
+
+
+def untouched_against_alone(futs, buckets, srv, alone):
+    """Requests no fault or rung touched, against their bucket served by
+    ``alone`` (one engine, the policy before any rung): pred, exit and
+    conf bit for bit.  Returns the number compared."""
+    n = 0
+    for rid, f in enumerate(futs):
+        if rid in srv.touched_rids or f.exception() is not None:
+            continue
+        reqs, x, alpha, i = buckets[rid]
+        lo = sum(r.n for r in reqs[:i])
+        ref = alone.infer(x, mode="compacted", record=False, alpha=alpha)
+        out = f.result()
+        for k in ("pred", "exit_idx", "conf"):
+            check(np.array_equal(out[k], ref[k][lo:lo + reqs[i].n]),
+                  f"resilience: request {rid}'s {k} differs from its "
+                  f"bucket served by the engine alone")
+        n += 1
+    return n
+
+
+def engine_state_roundtrip(eng, x, root):
+    """(a): the serving engine's EngineState saved, then restored into a
+    fresh engine: every leaf bit-equal, the next masked infer equal bit
+    for bit; save / restore ms (median of RES_REPS) and MB."""
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.engine import DartEngine
+    path = str(root / "engine_state")
+    save_ms, restore_ms = [], []
+    fresh = DartEngine.from_config(eng.cfg, eng.params, adapt=False,
+                                   cum_costs=eng.cum_costs)
+    for rep in range(RES_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.save_state(path, step=rep)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        fresh.restore_state(path, step=rep)
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+    a, b = flatten(eng.state), flatten(fresh.state)
+    check(len(a) == len(b) and all(
+        u.dtype == v.dtype and v.device == eng.device and torch.equal(u, v)
+        for u, v in zip(a, b)),
+        "resilience: a restored EngineState leaf differs")
+    m1, m2 = eng.infer(x, mode="masked"), fresh.infer(x, mode="masked")
+    for k in ("exit_idx", "pred", "conf", "conf_stack"):
+        check(torch.equal(m1[k], m2[k]),
+              f"resilience: masked {k} differs after the restore")
+    mb = sum(t.numel() * t.element_size() for t in a) / 1e6
+    return {"part": "a", "leaves": len(a), "mb": mb,
+            "save_ms": float(np.median(save_ms)),
+            "restore_ms": float(np.median(restore_ms)),
+            "rows": len(x)}
+
+
+def ladder_drain_join(eng0, eng1, pool_imgs, root):
+    """(c): two engines behind four pool slots (a replica pair each, so
+    that every rung can be reached), drained one slot at a time to rung
+    4, then joined back from a snapshot: the rung climbs, then returns
+    to 0; at rung 3 (tau from the cap stage on at the always-fire
+    sentinel, tau' clipped to 0) no row of a 64-row bucket leaves past
+    the cap stage, in either mode."""
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import (DispatchError, EnginePool,
+                                     PooledDartServer, RequestShed,
+                                     ResilienceConfig, SchedulerConfig)
+    from repro_torch.serving.resilience import (DEPTH_CAP_FRAC,
+                                                _TAU_ALWAYS_FIRE)
+    slots = {"a": eng0, "b": eng1, "c": eng0, "d": eng1}
+    pool = EnginePool(slots, ResilienceConfig(requeue_limit=2,
+                                              requeue_backoff_s=0.001),
+                      heartbeat=False)
+    srv = PooledDartServer(pool, SchedulerConfig(
+        mode="compacted", max_batch=RES_MAX_BATCH, edges=()), start=False)
+    warm = [srv.submit(pool_imgs[i]) for i in range(8)]
+    srv.flush()
+    check(all(f.exception() is None for f in warm),
+          "resilience: a warm request failed")
+    snap = str(root / "snapshot")
+    srv.snapshot(snap, step=1)
+    saved = [t.clone() for t in flatten(eng0.state)]
+    x = pool_imgs[:64]
+    orig_tau = eng0.state.tau.cpu().numpy()
+    cap = int(np.floor(orig_tau.size * DEPTH_CAP_FRAC))
+    climb, capped = [], []
+
+    def at_rung3(label):
+        tau = pool.primary.state.tau.cpu().numpy()
+        check((tau[cap:] == _TAU_ALWAYS_FIRE).all(),
+              f"resilience: rung 3 did not install the cap ({tau})")
+        for mode in ("compacted", "masked"):
+            out = pool.call(lambda e: e.infer(x, mode=mode, record=False))
+            top = int(np.max(out["exit_idx"]))
+            check(top <= cap, f"resilience: at rung 3 a row left at exit "
+                              f"{top} past the cap {cap} ({mode})")
+            capped.append({"when": label, "mode": mode, "max_exit": top,
+                           "exit_counts": np.bincount(
+                               out["exit_idx"],
+                               minlength=eng0.n_exits).tolist()})
+
+    for name in "abcd":
+        pool.drain(name)
+        climb.append(pool.rung)
+        if pool.rung == 3:
+            at_rung3("draining")
+    check(climb == [1, 2, 3, 4], f"resilience: drain rungs {climb}")
+    shed = srv.submit(pool_imgs[0], priority=0)
+    check(isinstance(shed.exception(timeout=5), RequestShed),
+          "resilience: rung 4 did not shed priority 0")
+    kept = srv.submit(pool_imgs[1], priority=1)
+    srv.flush()
+    check(isinstance(kept.exception(timeout=5), DispatchError)
+          and srv.counters["requeued"] == 2,
+          "resilience: the bounded requeue with no live engine")
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    pool.join("a", snapshot=snap)
+    join_ms = (time.perf_counter() - t0) * 1e3
+    warm_launches = dispatch.launch_counts()
+    restored = flatten(eng0.state)
+    check(all(torch.equal(u, v) for u, v in zip(saved[1:], restored[1:])),
+          "resilience: the joined engine's state is not the snapshot's")
+    back = [pool.rung]
+    at_rung3("joining")
+    for name in "bcd":
+        pool.join(name, warm=False)
+        back.append(pool.rung)
+    check(back == [3, 2, 1, 0], f"resilience: join rungs {back}")
+    check(np.array_equal(eng0.state.tau.cpu().numpy(), orig_tau)
+          and np.array_equal(eng1.state.tau.cpu().numpy(), orig_tau),
+          "resilience: the ladder did not restore tau")
+    after = srv.submit(pool_imgs[2])
+    srv.flush()
+    check(after.exception(timeout=5) is None,
+          "resilience: no service after the joins")
+    srv.close()
+    pool.close()
+    return {"part": "c", "drain_rungs": climb, "join_rungs": back,
+            "cap_stage": cap, "rung3": capped, "join_ms": join_ms,
+            "warm_shapes": len(pool._warm_shapes),
+            "warm_launches": warm_launches,
+            "rung_timeline": [(h["from"], h["to"])
+                              for h in pool.rung_history]}
+
+
+def trainer_crash_resume(cfg, data, root, deterministic):
+    """(d): Table I's batch and lr, RES_STEPS straight against
+    RES_FAIL_AT + crash + resume: the restored tree bit-equal to the one
+    saved at the crash step; the resumed losses within RES_LOSS_RTOL of
+    the straight run's, or, with cuDNN's deterministic algorithms, the
+    resumed losses and final tree bit-equal to the straight run's.
+    Returns (line, the resumed trainer)."""
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.runtime import fault
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+
+    def tc(d):
+        return TrainConfig(batch_size=TRAIN_BATCH, steps=RES_STEPS,
+                           lr=TRAIN_LR, log_every=1, ckpt_every=RES_FAIL_AT,
+                           ckpt_dir=str(root / d))
+    mode = "deterministic" if deterministic else "default"
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        straight = Trainer(cfg, tc(f"straight-{mode}"), data)
+        hist = straight.run()
+        t1 = Trainer(cfg, tc(f"crash-{mode}"), data)
+        t1.run(steps=RES_FAIL_AT)
+        t1.manager.wait()
+        saved = [t.detach().cpu().clone() if isinstance(t, torch.Tensor)
+                 else t for t in flatten(t1.state_tree())]
+        del t1                                    # the crash
+        t0 = time.perf_counter()
+        t2 = fault.resume(cfg, tc(f"crash-{mode}"), data_cfg=data)
+        resume_s = time.perf_counter() - t0
+        got = flatten(t2.state_tree())
+        check(t2.step == RES_FAIL_AT and len(got) == len(saved) and all(
+            (torch.equal(u.cpu(), v) and u.device == t2.device)
+            if isinstance(v, torch.Tensor) else u == v
+            for u, v in zip(got, saved)),
+            f"resilience: the restored trainer tree differs from the "
+            f"saved one ({mode})")
+        t2.run(steps=RES_STEPS)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    a = {h["step"]: h["loss"] for h in hist}
+    b = {h["step"]: h["loss"] for h in t2.history}
+    steps = list(range(RES_FAIL_AT + 1, RES_STEPS + 1))
+    rdiff = [abs(a[s] - b[s]) / abs(a[s]) for s in steps]
+    check(t2.step == RES_STEPS and sorted(b) == steps,
+          f"resilience: resumed steps {sorted(b)} ({mode})")
+    if deterministic:
+        check(max(rdiff) == 0.0 and all(
+            torch.equal(u, v) if isinstance(u, torch.Tensor) else u == v
+            for u, v in zip(flatten(straight.state_tree()),
+                            flatten(t2.state_tree()))),
+            f"resilience: with deterministic cuDNN the resumed run is not "
+            f"the straight run bit for bit ({b} vs {a})")
+    else:
+        check(max(rdiff) <= RES_LOSS_RTOL,
+              f"resilience: resumed losses {b} vs straight {a}")
+    kept = sorted(os.listdir(root / f"crash-{mode}"))
+    check(kept == [f"step_{RES_FAIL_AT:08d}", f"step_{RES_STEPS:08d}"],
+          f"resilience: checkpoints kept {kept}")
+    step_ms = np.diff([0.0] + [h["elapsed_s"] for h in hist]) * 1e3
+    return {"part": "d", "cudnn": mode, "batch": TRAIN_BATCH,
+            "steps": RES_STEPS, "crash_at": RES_FAIL_AT,
+            "leaves": len(got), "loss_straight": [a[s] for s in steps],
+            "loss_resumed": [b[s] for s in steps],
+            "max_loss_rdiff": max(rdiff), "resume_s": resume_s,
+            "ms_per_step_median": float(np.median(step_ms[1:]))}, t2
+
+
+def checkpoint_times(tree, root):
+    """A trainer tree's checkpoint: its MB and the median ms (of three)
+    of a synchronous save, of ``save_async``'s host copy (until it
+    returns) and its background write, and of a restore onto the
+    card."""
+    import shutil
+
+    from repro_torch import checkpoint as CK
+    from repro_torch.checkpoint.checkpoint import flatten
+    mb = sum(t.numel() * t.element_size() for t in flatten(tree)
+             if isinstance(t, torch.Tensor)) / 1e6
+    save_ms, copy_ms, write_ms, restore_ms = [], [], [], []
+    for rep in range(3):
+        d = str(root / f"timed{rep}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CK.save(d, 1, tree)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        fut = CK.save_async(d, 2, tree)
+        t1 = time.perf_counter()
+        fut.result()
+        copy_ms.append((t1 - t0) * 1e3)
+        write_ms.append((time.perf_counter() - t1) * 1e3)
+        t0 = time.perf_counter()
+        CK.restore(d, tree, step=1)
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+        shutil.rmtree(d)
+    return {"part": "d", "checkpoint_mb": mb,
+            "save_ms": float(np.median(save_ms)),
+            "save_async_copy_ms": float(np.median(copy_ms)),
+            "save_async_write_ms": float(np.median(write_ms)),
+            "restore_ms": float(np.median(restore_ms))}
+
+
+def drive_resilience(cfg, params, policy_state, cum_costs, data, train_data):
+    """The resilience phase (see the module docstring): (a) the
+    EngineState round-trip, (b) a PooledDartServer under a seeded fault
+    plan and without one, (c) the ladder through drain and join, (d) the
+    trainer's crash-resume.  Returns the kernel launches of (b)."""
+    import shutil
+
+    from repro_torch.data.datasets import make_batch
+    from repro_torch.engine import DartEngine
+    from repro_torch.kernels import dispatch
+
+    t_start = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_resilience"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+
+    def engine():
+        e = DartEngine.from_config(cfg, params, adapt=False,
+                                   cum_costs=cum_costs)
+        e.state = e.state.with_policy(tau=policy_state.tau,
+                                      coef=policy_state.coef,
+                                      beta_diff=policy_state.beta_diff)
+        return e
+    imgs = make_batch(data, range(SERVE_POOL_OFFSET,
+                                  SERVE_POOL_OFFSET + SERVE_POOL), "eval")[0]
+    idx = np.random.default_rng(1).integers(0, SERVE_POOL, RES_REQUESTS)
+
+    # (a) the EngineState round-trip, after some serving
+    served = engine()
+    for a in range(0, 256, 64):
+        served.infer(imgs[a:a + 64], mode="compacted")
+    served.record_requests(np.linspace(1.0, 9.0, 32), np.arange(32) % 5 == 0)
+    part_a = engine_state_roundtrip(served, imgs[:64], root)
+    emit(phase="resilience", model=cfg.name, **part_a)
+
+    # (b) the pool, without and with faults; one more engine serves
+    # each untouched bucket alone
+    alone = engine()
+    for b in (1, 2, 4, 8, 16):                   # warm every bucket shape
+        alone.infer(imgs[:b], mode="compacted", record=False)
+    lines = {}
+    for label, plan in (("no-faults", None), ("faults", res_plan())):
+        engines = {"e0": engine(), "e1": engine()}
+        line, futs, buckets, srv, calls = pooled_run(engines, imgs, idx,
+                                                     plan)
+        launches = line["launches"]
+        implied = sum(stages for _, stages in calls)
+        check(launches["difficulty"] == RES_REQUESTS,
+              f"resilience {label}: {launches['difficulty']} difficulty "
+              f"launches for {RES_REQUESTS} submits")
+        check(launches["exit_gate"] == implied,
+              f"resilience {label}: {launches['exit_gate']} gate launches, "
+              f"the engine calls imply {implied}")
+        line["untouched_checked"] = untouched_against_alone(futs, buckets,
+                                                            srv, alone)
+        line.update(run=label, implied_gate=implied)
+        lines[label] = line
+        emit(phase="resilience", model=cfg.name, part="b", **line)
+    clean, faulted = lines["no-faults"], lines["faults"]
+    check(clean["failed"] == 0 and clean["deaths"] == 0
+          and clean["untouched_checked"]
+          == RES_REQUESTS - clean["touched_requests"],
+          f"resilience: the fault-free run failed {clean}")
+    check(faulted["faults_injected"] == len(res_plan())
+          and faulted["hedges"] >= 1 and faulted["quarantined"] >= 1
+          and faulted["deaths"] >= 1 and faulted["retries"] >= 2
+          and faulted["failed"] == 0,
+          f"resilience: the fault plan did not play out {faulted}")
+    check(faulted["untouched_checked"] > 0,
+          "resilience: no request left untouched to compare")
+    check(all(r is not None for r in faulted["recovery_ms"]),
+          "resilience: no success after a death")
+
+    # (c) the ladder through drain and join
+    part_c = ladder_drain_join(engine(), engine(), imgs, root)
+    emit(phase="resilience", model=cfg.name, **part_c)
+
+    # (d) the trainer's crash-resume, with cuDNN's default algorithms and
+    # with its deterministic ones; then the checkpoint's costs
+    for deterministic in (False, True):
+        line, trainer = trainer_crash_resume(cfg, train_data, root,
+                                             deterministic)
+        emit(phase="resilience", model=cfg.name, **line)
+    emit(phase="resilience", model=cfg.name,
+         **checkpoint_times(trainer.state_tree(), root))
+    shutil.rmtree(root, ignore_errors=True)
+    emit(phase="resilience", model=cfg.name, summary=True,
+         phase_s=time.perf_counter() - t_start,
+         samples_per_s={k: v["samples_per_s"] for k, v in lines.items()})
+    return lines["faults"]["launches"], lines["no-faults"]["launches"]
+
+
 # ---------------------------------------------------------------------------
 # phases 6-7: LM decode on the main path
 # ---------------------------------------------------------------------------
@@ -2245,6 +2751,11 @@ def main() -> int:
     serving_launches = drive_serving(RESNET18_CIFAR,
                                      trained["resnet18-cifar"],
                                      resnet.state, resnet.cum_costs, CIFAR)
+    # the same engine under injected faults, its state round-trip, and
+    # the trainer's crash-resume
+    resilience_launches, _ = drive_resilience(
+        RESNET18_CIFAR, trained["resnet18-cifar"], resnet.state,
+        resnet.cum_costs, CIFAR, table1_cifar)
     del resnet, trained
     torch.cuda.empty_cache()
     # Table II: the three LeViTs trained, then served (static, joint_dp)
@@ -2292,6 +2803,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/exit_gate/exit_gate_kernel.py:65",
          "launches": vgg["exit_gate"],
          "serving_launches": serving_launches["exit_gate"],
+         "resilience_launches": resilience_launches["exit_gate"],
          "levit_engine_launches": levit["exit_gate"],
          "table2_launches": table2["exit_gate"],
          "max_abs_err": max(gate_err["conf"], gate_err["entropy"],
@@ -2312,6 +2824,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/difficulty/difficulty_kernel.py:86",
          "launches": vgg["difficulty"], "max_abs_err": diff_err,
          "serving_launches": serving_launches["difficulty"],
+         "resilience_launches": resilience_launches["difficulty"],
          "levit_engine_launches": levit["difficulty"],
          "table2_launches": table2["difficulty"],
          "ms": diff_ms,

@@ -23,13 +23,24 @@ against the port's own init for the same config, leaf by leaf: shapes,
 so a tree of the wrong architecture raises, and dtypes, which are
 ``cfg.param_dtype`` except for the batchnorm running statistics
 (``mean``, ``var``), kept in float32 whatever the param dtype.
+
+``restore_checkpoint`` reads a checkpoint of either package into a tree
+of the port (a trainer's ``state_tree()``, an ``EngineState``): the
+manifest's ``treedef`` says who wrote it.  The port's (``repro_torch:``)
+restores as it is.  The JAX package's (``PyTreeDef(``) holds HWIO
+convolution weights: every 4-D leaf under the key ``"w"`` is read in
+that layout and turned into OIHW, in the params and in the optimizer's
+moments alike.  The layout is never inferred from a shape: a 3 x 3
+convolution with as many inputs as outputs has one shape in both.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as CK
 from repro_torch import device as DEV
+from repro_torch.checkpoint.checkpoint import TREEDEF_PREFIX, map_leaves
 from repro_torch.models import get_family
 from repro_torch.models.transformer_lm import LMConfig, lm_init
 
@@ -105,3 +116,29 @@ def from_jax_params(values_tree, cfg, device=None):
     else:
         _check(params, get_family(cfg).init(cfg, device="meta"))
     return params
+
+
+def _is_conv(key, leaf) -> bool:
+    return key == "w" and isinstance(leaf, torch.Tensor) and leaf.dim() == 4
+
+
+def restore_checkpoint(path: str, target, step: int | None = None, *,
+                       device=None):
+    """``checkpoint.restore`` of a checkpoint that either package wrote,
+    into ``target`` (the port's layout).  Returns ``(tree, step,
+    extra)``."""
+    treedef = CK.read_manifest(path, step)["treedef"]
+    if treedef.startswith(TREEDEF_PREFIX):
+        return CK.restore(path, target, step, device=device)
+    if not treedef.startswith("PyTreeDef("):
+        raise ValueError(f"{path}: unknown checkpoint writer "
+                         f"(treedef {treedef[:40]!r})")
+    # the JAX package wrote it: read conv weights as HWIO views of the
+    # target, then turn them into OIHW
+    jax_target = map_leaves(
+        lambda k, t: t.permute(2, 3, 1, 0) if _is_conv(k, t) else t, target)
+    tree, step, extra = CK.restore(path, jax_target, step, device=device)
+    tree = map_leaves(
+        lambda k, t: t.permute(3, 2, 0, 1).contiguous() if _is_conv(k, t)
+        else t, tree)
+    return tree, step, extra

@@ -25,10 +25,16 @@ Execution modes:
 
 Images are NHWC ``(B, H, W, C)``: a numpy array, or a tensor on the
 engine's device.
+
+Every read-modify-write of ``state`` holds the engine's state lock, so a
+policy installed from another thread (:meth:`set_policy`, as a serving
+pool's degradation ladder does) is never overwritten by a call that
+folds its telemetry at the same time.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -76,6 +82,7 @@ class DartEngine:
         self.device = device
         self.params = convert.tree_map(lambda t: t.to(device), params)
         self.state = state
+        self._state_lock = threading.RLock()
         self.acfg = acfg
         self.dcfg = dcfg
         self.family = get_family(model_cfg)
@@ -211,10 +218,15 @@ class DartEngine:
                 if k in kw})
         kw.setdefault("beta_opt", float(self.state.beta_opt))
         pol = self._opt_fn(data, **kw)
-        self.state = self.state.with_policy(
-            tau=pol.tau, coef=pol.coef, beta_diff=pol.beta_diff)
-        self._policy_mirror = None
+        self.set_policy(tau=pol.tau, coef=pol.coef, beta_diff=pol.beta_diff)
         return pol
+
+    def set_policy(self, **policy) -> None:
+        """Install policy leaves (``EngineState.with_policy``'s keywords)
+        under the state lock; the host copy of the policy is dropped."""
+        with self._state_lock:
+            self.state = self.state.with_policy(**policy)
+            self._policy_mirror = None
 
     # ------------------------------------------------------------------
     # serving helpers
@@ -244,8 +256,10 @@ class DartEngine:
         """Host mirror of (tau, effective coef, beta_diff), cached until
         calibrate()/update() or a ``with_policy`` install replaces the
         tau/coef tensors."""
-        key = (id(self.state.tau), id(self.state.coef))
-        if self._policy_mirror is None or self._policy_mirror[0] != key:
+        # the key holds the tensors themselves: an id could be reused
+        key = (self.state.tau, self.state.coef)
+        m = self._policy_mirror
+        if m is None or m[0][0] is not key[0] or m[0][1] is not key[1]:
             self._policy_mirror = (key, (
                 self.state.tau.cpu().numpy().astype(np.float32),
                 self._coef().cpu().numpy().astype(np.float32),
@@ -433,7 +447,6 @@ class DartEngine:
         counters always, the section II.C window only when adaptation is
         on."""
         b = len(exit_idx)
-        s = self.state
         if exit_counts is None:
             exit_counts = np.bincount(exit_idx, minlength=self.n_exits)
         dev = self.device
@@ -441,46 +454,74 @@ class DartEngine:
         def t(a, dtype=torch.float32):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-        adaptive = s.adaptive
-        if self.adapt:
-            # confidence-calibrated pseudo-correctness (section II.C.1)
-            adaptive = AD.record_batch(
-                adaptive, self.acfg, t(exit_idx, torch.int32),
-                t(pred % self.acfg.n_classes, torch.int32), t(conf),
-                t(conf), t(macs / self.cum_costs[-1]))
-        self.state = dataclasses.replace(
-            s, adaptive=adaptive, served=s.served + b,
-            exit_counts=s.exit_counts + t(exit_counts, torch.int32),
-            total_macs=s.total_macs + float(np.sum(macs)),
-            since_update=s.since_update + b)
-        self.total_latency_s += latency_s
+        with self._state_lock:
+            s = self.state
+            adaptive = s.adaptive
+            if self.adapt:
+                # confidence-calibrated pseudo-correctness (section II.C.1)
+                adaptive = AD.record_batch(
+                    adaptive, self.acfg, t(exit_idx, torch.int32),
+                    t(pred % self.acfg.n_classes, torch.int32), t(conf),
+                    t(conf), t(macs / self.cum_costs[-1]))
+            self.state = dataclasses.replace(
+                s, adaptive=adaptive, served=s.served + b,
+                exit_counts=s.exit_counts + t(exit_counts, torch.int32),
+                total_macs=s.total_macs + float(np.sum(macs)),
+                since_update=s.since_update + b)
+            self.total_latency_s += latency_s
 
     def _maybe_update(self):
-        if self.adapt and int(self.state.since_update) >= self.update_every:
-            self.update()
+        with self._state_lock:
+            if self.adapt and \
+                    int(self.state.since_update) >= self.update_every:
+                self.update()
 
     def update(self) -> None:
         """One section II.C periodic refinement: run both adaptation laws
         on the sliding window, score with the Eq. 10 reward, update
         UCB1."""
-        s = self.state
-        adaptive = AD.periodic_update(s.adaptive, self.acfg,
-                                      beta_opt=float(s.beta_opt))
-        self.state = dataclasses.replace(
-            s, adaptive=adaptive, since_update=torch.zeros_like(
-                s.since_update))
-        self._policy_mirror = None
+        with self._state_lock:
+            s = self.state
+            adaptive = AD.periodic_update(s.adaptive, self.acfg,
+                                          beta_opt=float(s.beta_opt))
+            self.state = dataclasses.replace(
+                s, adaptive=adaptive, since_update=torch.zeros_like(
+                    s.since_update))
+            self._policy_mirror = None
 
     def record_requests(self, latencies_ms, missed=None) -> None:
         """Fold completed-request latency/deadline telemetry into the
         engine state (host-side write; the async scheduler calls this
         once per completed bucket)."""
-        self.state = ST.record_requests(self.state, latencies_ms, missed)
+        with self._state_lock:
+            self.state = ST.record_requests(self.state, latencies_ms,
+                                            missed)
 
     def record_quotes(self, quotes_ms, realized_ms) -> None:
         """Fold admission-time SLO quote error telemetry (quote vs
         realized latency; host-side write, like record_requests)."""
-        self.state = ST.record_quotes(self.state, quotes_ms, realized_ms)
+        with self._state_lock:
+            self.state = ST.record_quotes(self.state, quotes_ms,
+                                          realized_ms)
+
+    # ------------------------------------------------------------------
+    # state round-trip
+    # ------------------------------------------------------------------
+    def save_state(self, path: str, step: int = 0):
+        """Checkpoint the whole serving state (one tree) atomically, in
+        the JAX package's format."""
+        from repro_torch import checkpoint as CK
+        return CK.save(path, step, self.state)
+
+    def restore_state(self, path: str, step: int | None = None):
+        """Restore ``self.state`` from a checkpoint of either package
+        (older layouts through ``restore_with_migration``), every leaf on
+        the engine's device; the host copy of the policy is dropped."""
+        with self._state_lock:
+            self.state, step = ST.restore_with_migration(
+                path, self.state, step, device=self.device)
+            self._policy_mirror = None
+        return step
 
     def stats(self) -> dict:
         """Serving counters + windowed section II.C statistics (numpy),

@@ -40,6 +40,7 @@ from repro_torch.core import difficulty as DIFF
 from repro_torch.core import thresholds as TH
 from repro_torch.core.routing import DartParams
 from repro_torch.engine import registry as REG
+from repro_torch.engine import state as ST
 from repro_torch.engine.compactor import (BatchCompactor, OutOfCapacity,
                                           PageAllocator, SlotPool)
 from repro_torch.engine.state import EngineState
@@ -139,6 +140,27 @@ class LMDecodeEngine:
         pool and page store are its own serving state)."""
         return ContinuousLMDecoder(self, n_slots=n_slots,
                                    page_size=page_size, max_len=max_len)
+
+    # ------------------------------------------------------------------
+    # state round-trip (as DartEngine's)
+    # ------------------------------------------------------------------
+    def save_state(self, path: str, step: int = 0):
+        from repro_torch import checkpoint as CK
+        return CK.save(path, step, self.state)
+
+    def restore_state(self, path: str, step: int | None = None, *,
+                      mesh=None):
+        """Restore ``self.state`` (see ``DartEngine.restore_state``).  A
+        sharded engine's state would be re-placed on its mesh, which the
+        port does not have yet (ROADMAP queue 1, item 9): ``mesh``
+        raises."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "restoring onto a mesh is not ported yet (ROADMAP queue "
+                "1, item 9)")
+        self.state, step = ST.restore_with_migration(
+            path, self.state, step, device=self.device)
+        return step
 
     def stats(self) -> dict:
         """Decode telemetry: per-stage exit counts, tokens served, mean

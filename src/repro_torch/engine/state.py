@@ -5,8 +5,10 @@ serving counters, as tensors on the engine's device.  The fields are
 those of the JAX package's ``engine/state.py``; the latency and quote
 telemetry is written from the host by the async scheduler
 (``repro_torch.serving``), the slot counters wait for the LM session.
-Scalar knobs such as ``beta_diff`` are 0-d tensors.  Checkpointing waits
-for the checkpoint slice.
+Scalar knobs such as ``beta_diff`` are 0-d tensors.  The state flattens
+in ``_FIELDS`` order (the ``adaptive`` dict by sorted key), as the JAX
+package's pytree does, so either package restores the other's
+checkpoint; ``restore_with_migration`` also reads the older layouts.
 """
 from __future__ import annotations
 
@@ -18,6 +20,24 @@ import torch
 from repro_torch.core import adaptive as AD
 from repro_torch.core.routing import DartParams
 from repro_torch.device import resolve
+
+#: The flatten order of an EngineState (the JAX package's).
+_FIELDS = ("tau", "coef", "beta_diff", "beta_opt", "adaptive",
+           "served", "exit_counts", "total_macs", "since_update",
+           "lat_ms", "lat_ptr", "lat_count", "deadline_miss",
+           "slot_steps", "decode_steps", "pages_peak",
+           "quote_ms_sum", "quote_err_ms_sum", "quote_count")
+
+#: The pre-latency-telemetry field set.  New telemetry leaves are only
+#: ever appended to ``_FIELDS``, so every older checkpoint is a strict
+#: prefix of the current flatten order.
+LEGACY_FIELDS = _FIELDS[:-10]
+
+#: Known older flatten orders, newest first: before the admission-quote
+#: counters, before the slot/page counters, before latency telemetry.
+#: Trying the longer prefix first keeps a latency-era checkpoint from
+#: dropping its latency window.
+_LAYOUT_PREFIXES = (_FIELDS[:-3], _FIELDS[:-6], LEGACY_FIELDS)
 
 #: Default size of the per-request latency ring buffer.
 LAT_WINDOW = 2048
@@ -58,6 +78,9 @@ class EngineState:
     quote_ms_sum: torch.Tensor
     quote_err_ms_sum: torch.Tensor
     quote_count: torch.Tensor
+
+    #: flatten order for ``repro_torch.checkpoint``
+    CKPT_FIELDS = _FIELDS
 
     @classmethod
     def create(cls, n_exits: int, acfg: AD.AdaptiveConfig,
@@ -183,3 +206,32 @@ def request_stats(state: EngineState) -> dict:
             "mean_quote_ms": float(state.quote_ms_sum) / qn,
             "mean_abs_err_ms": float(state.quote_err_ms_sum) / qn}
     return out
+
+
+def restore_with_migration(path: str, template: EngineState,
+                           step: int | None = None, *, device=None):
+    """``checkpoint.restore`` with legacy-layout migration: a checkpoint
+    whose leaves are a strict prefix of the current flatten order (an
+    older ``_LAYOUT_PREFIXES`` layout) restores those fields and keeps
+    the template's values for the rest.  Prefixes are tried newest
+    first, so a checkpoint restores the LONGEST layout it matches.
+    Every leaf lands on ``device`` (default: the template's).  Returns
+    ``(state, step)``."""
+    from repro_torch import checkpoint as CK
+    try:
+        restored, step, _ = CK.restore(path, template, step, device=device)
+        return restored, step
+    except ValueError as e:
+        if "leaf count" not in str(e):
+            raise
+    for i, fields in enumerate(_LAYOUT_PREFIXES):
+        legacy = [getattr(template, f) for f in fields]
+        try:
+            leaves, step, _ = CK.restore(path, legacy, step, device=device)
+        except ValueError as e:
+            if "leaf count" not in str(e) or i == len(_LAYOUT_PREFIXES) - 1:
+                raise
+            continue
+        return dataclasses.replace(
+            template, **dict(zip(fields, leaves))), step
+    raise AssertionError("unreachable")

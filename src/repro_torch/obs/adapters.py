@@ -9,7 +9,8 @@ Two kinds of adapter, matching the two ways data flows:
   counters): no extra device syncs.
 * **pull-side** ``bind_*`` collectors, registered once per object and
   run at SCRAPE time: ``EngineState`` telemetry, per-lane DAES from
-  ``LaneDaesAccumulator``, queue depths from ``RequestQueue``, and the
+  ``LaneDaesAccumulator``, queue depths from ``RequestQueue``, the
+  engine pool's health, ladder rung and event counters, and the
   kernels' launch counts from ``repro_torch.kernels.dispatch``.
   Collectors hold weakrefs, so a garbage-collected server unregisters
   itself.
@@ -22,6 +23,7 @@ of its hand-written kernels (``dart_kernel_launches_total{kernel}``).
 """
 from __future__ import annotations
 
+import time
 import weakref
 
 import numpy as np
@@ -30,7 +32,8 @@ from repro_torch.obs import OBS
 from repro_torch.obs.metrics import LATENCY_BUCKETS_MS
 
 __all__ = ["record_admit", "record_bucket", "record_completed",
-           "bind_scheduler", "bind_dispatch"]
+           "record_retry", "record_hedge", "record_requeue", "record_fault",
+           "bind_scheduler", "bind_dispatch", "bind_pool"]
 
 
 def _lane(lane) -> str:
@@ -116,6 +119,43 @@ def record_completed(server, reqs: list, results: list, t_dispatch: float,
         for s in np.unique(exit_idx):
             exits.inc(int(np.sum(exit_idx == s)), member="0",
                       stage=str(int(s)))
+
+
+def record_retry(engine: str, attempt: int) -> None:
+    """One retried dispatch (the engine pool re-running a bucket on
+    another engine after a failure)."""
+    OBS.tracer.record("retry", ts=time.monotonic(), engine=engine,
+                      attempt=attempt)
+    OBS.registry.counter("dart_retries_total",
+                         "bucket dispatch retries by engine",
+                         ("engine",)).inc(1, engine=engine)
+
+
+def record_hedge(slow: str, to: str) -> None:
+    """One hedged re-dispatch: the straggler-policy deadline expired on
+    ``slow`` and the bucket was duplicated onto ``to``."""
+    OBS.tracer.record("hedge", ts=time.monotonic(), slow=slow, to=to)
+    OBS.registry.counter("dart_hedges_total",
+                         "hedged straggler re-dispatches by slow engine",
+                         ("engine",)).inc(1, engine=slow)
+
+
+def record_requeue(n_requests: int) -> None:
+    """One dead-engine bucket requeue (backpressure-bypassing)."""
+    OBS.tracer.record("requeue", ts=time.monotonic(),
+                      n_requests=n_requests)
+    OBS.registry.counter("dart_requeues_total",
+                         "requests requeued after losing their engine",
+                         ()).inc(n_requests)
+
+
+def record_fault(point: str, kind: str, engine) -> None:
+    """One injected fault firing (chaos runs only)."""
+    OBS.tracer.record("fault", ts=time.monotonic(), point=point,
+                      kind=kind, engine=engine)
+    OBS.registry.counter("dart_faults_injected_total",
+                         "chaos faults injected by cut point and kind",
+                         ("point", "kind")).inc(1, point=point, kind=kind)
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +271,54 @@ def _collect_engine(reg, engine, name: str) -> None:
                 "re-traces of an already-compiled step key "
                 "(alertable: should stay 0)",
                 ("engine",)).set_total(0, engine=name)
+
+
+def bind_pool(pool) -> None:
+    """Register a scrape-time collector for an
+    :class:`~repro_torch.serving.resilience.EnginePool`: per-engine
+    health gauges (2 healthy / 1 degraded / 0 dead-or-drained), the
+    chaos / retry / hedge / requeue / quarantine totals, the
+    degradation-ladder rung, and the straggler-policy hedge deadline.
+    Weakly bound, like ``bind_scheduler``."""
+    ref = weakref.ref(pool)
+
+    def collect(reg):
+        obj = ref()
+        if obj is None:
+            return "dead"
+        from repro_torch.serving.resilience import HEALTH_LEVEL
+        st = obj.stats()
+        health = reg.gauge("dart_engine_health",
+                           "pool engine health (2 healthy / 1 degraded "
+                           "/ 0 dead or drained)", ("engine",))
+        for name, state in st["engines"].items():
+            health.set(HEALTH_LEVEL[state], engine=name)
+        reg.gauge("dart_degradation_rung",
+                  "graceful-degradation ladder rung (0 = full service)"
+                  ).set(st["rung"])
+        ev = reg.counter("dart_pool_events_total",
+                         "engine-pool counters by event", ("event",))
+        for k in ("calls", "retries", "hedges", "requeues",
+                  "quarantined", "deaths", "stragglers", "joins",
+                  "drains"):
+            ev.set_total(st[k], event=k)
+        reg.counter("dart_retries_total",
+                    "bucket dispatch retries by engine",
+                    ("engine",)).set_total(st["retries"], engine="_pool")
+        reg.counter("dart_hedges_total",
+                    "hedged straggler re-dispatches by slow engine",
+                    ("engine",)).set_total(st["hedges"], engine="_pool")
+        reg.counter("dart_faults_injected_total",
+                    "chaos faults injected by cut point and kind",
+                    ("point", "kind")).set_total(
+            st["faults_injected"], point="_all", kind="_all")
+        if st["straggler_deadline_ms"] is not None:
+            reg.gauge("dart_hedge_deadline_ms",
+                      "straggler-policy rolling-median hedge deadline"
+                      ).set(st["straggler_deadline_ms"])
+        return None
+
+    OBS.registry.register_collector(collect)
 
 
 def bind_dispatch(reg) -> None:

@@ -31,6 +31,10 @@ class OptimizerState:
     step: int
     inner: Any
 
+    #: flatten order for ``repro_torch.checkpoint``: the JAX package's
+    #: ``(step, inner)``; the int step is a 0-d int32 leaf on disk
+    CKPT_FIELDS = ("step", "inner")
+
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:

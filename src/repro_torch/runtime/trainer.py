@@ -5,7 +5,11 @@ VGG, ResNet, LeViT, ViT or ConvNeXt of ``repro_torch.models`` on one
 device with the Eq. 18 loss (``core.routing.multi_exit_xent``), AdamW
 or SGD under a warmup-cosine schedule with the batchnorm running
 statistics masked out, and microbatch accumulation; a step then merges
-the train-mode batchnorm statistics into the tree.  ViT-H/14's
+the train-mode batchnorm statistics into the tree.  With ``ckpt_dir``
+set, ``run`` checkpoints ``state_tree()`` every ``ckpt_every`` steps
+and at its end (``repro_torch.checkpoint``, the JAX package's format),
+and ``restore`` resumes the latest one, the port's or the JAX
+package's (``convert.restore_checkpoint``).  ViT-H/14's
 ``remat`` recomputes each block in the backward pass
 (``models/vit.py``).  ``trainer.params`` is a tree that
 ``DartEngine.from_config`` serves as it is: its leaves never require
@@ -13,7 +17,7 @@ grad.
 
 The reference's other options wait for later slices and raise here:
 the LM and diffusion families (ROADMAP queue 1, items 6 and 8), a mesh,
-FSDP and gradient compression (item 9), checkpoints (item 4).
+FSDP and gradient compression (item 9).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import time
 
 import torch
 
+from repro_torch import checkpoint as ckpt_lib
 from repro_torch import convert
 from repro_torch import device as DEV
 from repro_torch.core import routing as R
@@ -46,6 +51,7 @@ class TrainConfig:
     microbatches: int = 1
     seed: int = 0
     ckpt_dir: str | None = None
+    ckpt_every: int = 100
     log_every: int = 20
     fsdp: bool = False
     compression: str = "none"
@@ -76,8 +82,6 @@ class Trainer:
             _refuse("training on a mesh or with FSDP", 9)
         if train_cfg.compression not in (None, "none"):
             _refuse("gradient compression", 9)
-        if train_cfg.ckpt_dir:
-            _refuse("checkpointing", 4)
         self.model_cfg = model_cfg
         self.cfg = train_cfg
         self.family = get_family(model_cfg)
@@ -102,6 +106,9 @@ class Trainer:
         self.opt_state = self.opt.init(self.params)
         self.step = 0
         self._acc = GradAccumulator(train_cfg.microbatches)
+        self.manager = (ckpt_lib.CheckpointManager(
+            train_cfg.ckpt_dir, save_every=train_cfg.ckpt_every)
+            if train_cfg.ckpt_dir else None)
         self.history: list[dict] = []
 
     def _loss_fn(self, params, batch):
@@ -149,10 +156,35 @@ class Trainer:
                 if self.step % self.cfg.log_every == 0 or self.step == steps:
                     self.history.append({"step": self.step, "loss": loss,
                                          "elapsed_s": time.time() - t0})
+                if self.manager:
+                    self.manager.maybe_save(self.step, self.state_tree(),
+                                            extra={"loss": loss})
         finally:
             if own_pipe:
                 pipeline.close()
+            if self.manager:
+                self.manager.maybe_save(self.step, self.state_tree(),
+                                        extra={}, force=True)
+                self.manager.wait()
         return self.history
 
-    def restore(self, path=None):
-        _refuse("restoring a checkpoint", 4)
+    # -- checkpoint plumbing -------------------------------------------------
+    def state_tree(self):
+        """What a checkpoint holds: the params, the optimizer state and
+        the step (the JAX trainer's tree)."""
+        return {"params": self.params, "opt": self.opt_state,
+                "step": self.step}
+
+    def restore(self, path=None) -> bool:
+        """Resume the latest checkpoint under ``path`` (default: the
+        train config's ``ckpt_dir``), written by either package, onto
+        this trainer's device.  False when there is none."""
+        path = self.manager.path if path is None else path
+        if ckpt_lib.latest_step(path) is None:
+            return False
+        tree, _, _ = convert.restore_checkpoint(path, self.state_tree(),
+                                                device=self.device)
+        self.params = tree["params"]
+        self.opt_state = tree["opt"]
+        self.step = int(tree["step"])
+        return True

@@ -30,6 +30,10 @@ classifier engine):
   and SLO quotes.  Enable via ``SchedulerConfig(predict="conservative")``
   (same decisions) or ``"aggressive"`` (opt-in).
 * :class:`RequestQueue` — lane-keyed backpressure queue (queue.py).
+* :class:`EnginePool` / :class:`PooledDartServer` — fault-tolerant
+  serving over several engines (resilience.py): retry, hedging,
+  quarantine, the degradation ladder, drain/join from an
+  ``EngineState`` snapshot.
 
 Scheduling never changes routing under a fixed policy: every completed
 request's outputs are those of serving it alone through
@@ -43,8 +47,12 @@ from repro_torch.serving.queue import RequestQueue
 from repro_torch.serving.request import (DispatchError, InvalidEngineOutput,
                                          Request, RequestRejected,
                                          RequestShed)
+from repro_torch.serving.resilience import (EnginePool, NoHealthyEngines,
+                                            PooledDartServer,
+                                            ResilienceConfig)
 
 __all__ = ["AsyncDartServer", "SchedulerConfig", "AdmissionPlanner",
            "ExitDepthPredictor", "RequestQueue", "Request",
            "RequestRejected", "RequestShed", "DispatchError",
-           "InvalidEngineOutput"]
+           "InvalidEngineOutput", "EnginePool", "PooledDartServer",
+           "ResilienceConfig", "NoHealthyEngines"]

@@ -273,6 +273,21 @@ class AsyncDartServer:
             else now + deadline_ms / 1e3,
             future=Future(), payload=payload)
 
+    # -- seams of the resilience layer ----------------------------------
+    def _engine_call(self, fn):
+        """Run one engine call.  ``fn(engine) -> result``; the default
+        binds the scheduler's single engine.  The resilience layer
+        (:class:`~repro_torch.serving.resilience.EnginePool`) overrides
+        this to add engine selection, retry/backoff and hedging without
+        the dispatch site knowing."""
+        return fn(self.engine)
+
+    def _on_dispatch_error(self, reqs: list, exc: Exception) -> bool:
+        """Dispatch-failure hook: return True when the requests were
+        re-routed (e.g. requeued by the pool after an engine death) and
+        must NOT have their futures failed.  Default: unhandled."""
+        return False
+
     # -- scheduling -----------------------------------------------------
     def _select_flush(self, now: float):
         """(lane, reason, force) of the most urgent flush-ready lane,
@@ -346,6 +361,8 @@ class AsyncDartServer:
         try:
             self._dispatch(reqs, reason)
         except Exception as e:                     # noqa: BLE001
+            if self._on_dispatch_error(reqs, e):
+                return                             # re-routed, not failed
             self.counters["dispatch_errors"] = \
                 self.counters.get("dispatch_errors", 0) + 1
             self.last_error = e
@@ -417,9 +434,10 @@ class AsyncDartServer:
             # is monotone in alpha), so one min_exit covers the bucket
             min_exit = self.predictor.min_exit(self.engine,
                                                float(np.min(alpha)))
-        return self.engine.infer(x, mode=self.cfg.mode, record=True,
-                                 alpha=alpha, pad_to=pad_to,
-                                 min_exit=min_exit)
+        return self._engine_call(
+            lambda eng: eng.infer(x, mode=self.cfg.mode, record=True,
+                                  alpha=alpha, pad_to=pad_to,
+                                  min_exit=min_exit))
 
     def _dispatch(self, reqs: list, reason: str) -> None:
         x = np.concatenate([r.x for r in reqs])

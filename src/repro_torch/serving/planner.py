@@ -110,13 +110,27 @@ class AdmissionPlanner:
         with self._lock:
             return list(self._depth_ema)
 
+    # ------------------------------------------------------------------
+    # snapshot (serving-state checkpoint): the learned priors a restarted
+    # server should NOT have to re-learn from a cold stream
+    # ------------------------------------------------------------------
     def state_dict(self) -> dict:
-        """The learned priors and the service EMA (a restarted server
-        could resume them once the port checkpoints serving state)."""
+        """The learned priors and the service EMA, JSON-serializable."""
         with self._lock:
             return {"depth_ema": list(self._depth_ema),
                     "global_depth": self._global_depth,
                     "stage_ms": self._stage_ms}
+
+    def load_state_dict(self, state: dict) -> None:
+        with self._lock:
+            depth = list(state["depth_ema"])
+            if len(depth) != self.n_classes:
+                raise ValueError(
+                    f"snapshot has {len(depth)} depth classes, "
+                    f"planner has {self.n_classes}")
+            self._depth_ema = depth
+            self._global_depth = state["global_depth"]
+            self._stage_ms = state["stage_ms"]
 
     # ------------------------------------------------------------------
     # admission-time SLO quoting: predicted depth x per-stage service

@@ -266,6 +266,23 @@ class ExitDepthPredictor:
                     "band_cache": {str(k): v for k, v
                                    in self._band_cache.items()}}
 
+    def load_state_dict(self, state: dict) -> None:
+        w0 = np.asarray(state["w0"], np.float64)
+        if w0.shape != self.w0.shape:
+            raise ValueError(
+                f"snapshot head shape {w0.shape} != {self.w0.shape}")
+        with self._lock:
+            self.w0 = w0
+            self.w1 = np.asarray(state["w1"], np.float64)
+            self.hist = np.asarray(state["hist"], np.float64)
+            self.n_obs = np.asarray(state["n_obs"], np.int64)
+            self.hits = int(state["hits"])
+            self.misses = int(state["misses"])
+            self.skip_calls = int(state["skip_calls"])
+            self.skip_stages = int(state["skip_stages"])
+            self._band_cache = {int(k): int(v) for k, v
+                                in state["band_cache"].items()}
+
     # -- introspection ------------------------------------------------------
     def stats(self) -> dict:
         with self._lock:

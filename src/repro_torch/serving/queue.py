@@ -74,6 +74,17 @@ class RequestQueue:
                 f"(priority {victim.priority})"))
             return "shed"
 
+    def requeue(self, req: Request) -> str:
+        """Re-admit a request whose bucket lost its engine (the engine
+        pool's requeue), BYPASSING the backpressure policy: the request
+        already passed admission, and shedding it now would break the
+        invariant that an admitted request eventually resolves.  The
+        pool bounds how often one request comes back, so this cannot
+        grow a lane unboundedly."""
+        with self._lock:
+            self._lanes.setdefault(req.lane, deque()).append(req)
+        return "queued"
+
     # ------------------------------------------------------------------
     # lane views (all O(lane) worst case; lanes are short)
     # ------------------------------------------------------------------
