@@ -15,6 +15,7 @@ import importlib
 
 ASSIGNED = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
     "vit-h14": "repro_torch.configs.vit_h14",
     "convnext-b": "repro_torch.configs.convnext_b",
     "resnet-152": "repro_torch.configs.resnet_152",
@@ -24,10 +25,8 @@ ASSIGNED = {
 #: assigned ids not ported yet, and the ROADMAP queue 1 item that ports
 #: each
 NOT_PORTED = {
-    "internlm2-20b": "item 6 (the rest of LM decode: remat and the "
-                     "layer-scan configs)",
-    "granite-moe-3b-a800m": "item 6 (the MoE decode path)",
-    "deepseek-v3-671b": "item 6 (the MLA, MoE and MTP paths)",
+    "granite-moe-3b-a800m": "item 6b (the MoE path)",
+    "deepseek-v3-671b": "item 6b (the MLA, MoE and MTP paths)",
     "dit-s2": "item 8 (dit.py)",
     "dit-xl2": "item 8 (dit.py)",
 }

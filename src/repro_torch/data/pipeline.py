@@ -8,6 +8,9 @@
   its own on a CUDA device, so drawing and copying overlap the step.
   ``wait_s`` adds up the time ``next`` spent waiting for that thread.
 
+``kind="tokens"`` with ``seq_len`` and ``vocab`` draws the LM's motif
+sequences (``datasets.synth_tokens_sample``) instead of images.
+
 The mesh of the JAX pipeline (a batch-sharded placement) waits for the
 multi-device slice (ROADMAP queue 1, item 9).
 """
@@ -47,12 +50,17 @@ PREFETCH = 2
 class DataPipeline:
     """``next(pipe) -> (step, x, y)``: the training split's batches from
     ``start_step`` on, x and y tensors on ``device`` (``None`` = the CUDA
-    card)."""
+    card); ``kind``, ``seq_len`` and ``vocab`` as ``make_batch`` takes
+    them."""
 
-    def __init__(self, cfg: DatasetConfig, batch_size: int, *,
-                 start_step: int = 0, device=None):
+    def __init__(self, cfg: DatasetConfig, batch_size: int, *, kind=None,
+                 seq_len=None, vocab=None, start_step: int = 0,
+                 device=None):
         self.cfg = cfg
         self.batch_size = batch_size
+        self.kind = kind
+        self.seq_len = seq_len
+        self.vocab = vocab
         self.device = DEV.resolve(device)
         self.step = start_step
         self.wait_s = 0.0
@@ -65,7 +73,9 @@ class DataPipeline:
 
     def _make(self, step: int):
         x, y = make_batch(self.cfg,
-                          batch_indices(self.cfg, step, self.batch_size))
+                          batch_indices(self.cfg, step, self.batch_size),
+                          kind=self.kind, seq_len=self.seq_len,
+                          vocab=self.vocab)
         x, y = torch.from_numpy(x), torch.from_numpy(y)
         if self._stream is None:
             return x.to(self.device), y.to(self.device), None
@@ -113,11 +123,11 @@ class DataPipeline:
         self._thread.join(timeout=2.0)
 
 
-def eval_batches(cfg: DatasetConfig, batch_size: int, *,
-                 n: int | None = None):
+def eval_batches(cfg: DatasetConfig, batch_size: int, *, kind=None,
+                 n: int | None = None, seq_len=None, vocab=None):
     """Sequential eval split iterator of numpy batches (no prefetch
     thread)."""
     n = n or cfg.n_eval
     for start in range(0, n, batch_size):
         idx = np.arange(start, min(start + batch_size, n))
-        yield make_batch(cfg, idx, "eval")
+        yield make_batch(cfg, idx, "eval", kind, seq_len, vocab)

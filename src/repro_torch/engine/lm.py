@@ -19,6 +19,12 @@ Two paths decide the same tokens:
   stage (the CUDA kernel on a card, the plain chain on the CPU).  Each
   layer reads its K/V view through ``kernels.dispatch.paged_gather``.
 
+``engine.session()`` serves concurrent callers through the async
+scheduler (``serving.lm_session.LMDecodeSession``: requests laned by
+``(prompt_len, n_new)``, one ``generate`` per flushed bucket), and
+``engine.session(continuous=True)`` through the slot pool
+(``LMContinuousSession``).
+
 The JAX package compiles each step with ``jax.jit`` and donates its
 buffers; here each step is plain Python over tensors updated in place,
 and ``engine.step_counts`` counts the calls of each step kind where the
@@ -47,6 +53,7 @@ from repro_torch.engine.state import EngineState
 from repro_torch.kernels import dispatch as KD
 from repro_torch.models import layers as L
 from repro_torch.models import transformer_lm as TLM
+from repro_torch.obs import stats as OBS_STATS
 
 
 def _stages(cfg):
@@ -111,6 +118,10 @@ class LMDecodeEngine:
     def __init__(self, cfg, params, dart: DartParams, *,
                  buckets=(1, 2, 4, 8, 16, 32, 64, 128),
                  confidence: str = "lm-token", device=None):
+        if cfg.layer_scan:
+            raise ValueError(
+                f"{cfg.name}: the decode engine serves the per-layer tree; "
+                "layer_scan is a train and prefill layout")
         self.device = DEV.resolve(device)
         self.cfg = cfg
         self.params = convert.tree_map(lambda t: t.to(self.device), params)
@@ -133,6 +144,74 @@ class LMDecodeEngine:
         self.state = EngineState.create(self.n_exits, self.acfg, dart,
                                         device=self.device)
         self._cont_default = None  # lazy decoder for generate("continuous")
+        self._policy_mirror = None
+
+    # ------------------------------------------------------------------
+    @property
+    def dart(self) -> DartParams:
+        """The routing-parameter view (reads the live EngineState)."""
+        s = self.state
+        return DartParams(tau=s.tau, coef=s.coef,
+                          beta_diff=float(s.beta_diff),
+                          beta_opt=float(s.beta_opt))
+
+    #: confidence functionals bounded above by 1.0, for which the Eq. 19
+    #: rule-out bound is sound (see thresholds.min_exit_bound)
+    _BOUNDED_CONF = ("softmax-max", "lm-token")
+
+    def min_exit_bound(self, alpha_lo: float = 0.0) -> int:
+        """Sound per-batch ``min_exit`` under the current policy: gates
+        0..m-1 can never fire for any row with decode-time difficulty
+        >= ``alpha_lo``.  The routing alpha is the Eq. 8 decode EMA
+        (infimum 0.0), so callers without a tighter bound pass 0.0."""
+        if self.confidence not in self._BOUNDED_CONF or self.n_exits < 2:
+            return 0
+        tau, coef, beta_diff = self._policy_host()
+        return TH.min_exit_bound(tau, coef, beta_diff, alpha_lo)
+
+    def _policy_host(self):
+        """Host mirror of (tau, coef, beta_diff), cached until a policy
+        install replaces the tau/coef tensors, so the serving path does
+        not copy the policy off the card on every bucket."""
+        # the key holds the tensors themselves: an id could be reused
+        key = (self.state.tau, self.state.coef)
+        m = self._policy_mirror
+        if m is None or m[0][0] is not key[0] or m[0][1] is not key[1]:
+            self._policy_mirror = (key, (
+                self.state.tau.cpu().numpy().astype(np.float32),
+                self.state.coef.cpu().numpy().astype(np.float32),
+                float(self.state.beta_diff)))
+        return self._policy_mirror[1]
+
+    def prompt_alpha(self, prompt_tokens) -> np.ndarray:
+        """Admission-time Eq. 8 difficulty of a prompt batch (B, S): the
+        token-domain estimator over the input embeddings, what the
+        exit-depth predictor conditions on before any layer runs.  One
+        plain torch pass; host numpy out."""
+        toks = torch.as_tensor(np.asarray(prompt_tokens), dtype=torch.long,
+                               device=self.device)
+        self._count_step(("lm-prompt-alpha", toks.shape[1]))
+        x = L.embed(self.params["embed"], toks).to(self.cfg.compute_dtype)
+        return DIFF.token_difficulty(x).cpu().numpy()
+
+    def bucket_key(self, n: int) -> int:
+        """The padded shape of an ``n``-row decode bucket (the
+        ``BatchCompactor`` bucket), the key every serving path shares."""
+        return self.compactor.padded_size(n)
+
+    def session(self, cfg=None, *, continuous: bool = False, **kw):
+        """Queue-backed session handle: drive this engine through the
+        async scheduler (deadlines, priorities, concurrent ``generate``
+        callers consolidated into shared bucketed decode loops).
+        ``continuous=True`` returns the slot-refill session over a
+        :class:`ContinuousLMDecoder` instead (no bucket flushes).  See
+        :class:`repro_torch.serving.lm_session.LMDecodeSession` and
+        :class:`~repro_torch.serving.lm_session.LMContinuousSession`."""
+        from repro_torch.serving.lm_session import (LMContinuousSession,
+                                                    LMDecodeSession)
+        if continuous:
+            return LMContinuousSession(self, cfg=cfg, **kw)
+        return LMDecodeSession(self, cfg=cfg, **kw)
 
     def continuous(self, n_slots=None, page_size=8, max_len=None):
         """A slot-based continuous-batching decoder over a paged KV cache.
@@ -160,26 +239,35 @@ class LMDecodeEngine:
                 "1, item 9)")
         self.state, step = ST.restore_with_migration(
             path, self.state, step, device=self.device)
+        self._policy_mirror = None
         return step
 
     def stats(self) -> dict:
         """Decode telemetry: per-stage exit counts, tokens served, mean
-        layer fraction spent, continuous-batching counters."""
-        s = self.state
-        served = int(s.served)
-        counts = s.exit_counts.cpu().numpy()
-        total_macs = float(s.total_macs)
-        return {"served": served,
-                "exit_counts": counts,
-                "exit_frac": counts / max(served, 1),
-                "total_macs": total_macs,
-                "mean_macs": total_macs / max(served, 1),
-                "layers_run": self.layers_run,
-                "layers_skipped": self.layers_skipped,
-                "replicas": 1,
-                "continuous": {"slot_steps": int(s.slot_steps),
-                               "decode_steps": int(s.decode_steps),
-                               "pages_peak": int(s.pages_peak)}}
+        layer fraction spent, continuous-batching counters, and
+        ``requests`` (latency percentiles, deadline misses) once a
+        session recorded any."""
+        tel = ST.telemetry_totals(self.state)
+        out = OBS_STATS.engine_summary(tel)
+        out.update(
+            layers_run=self.layers_run,
+            layers_skipped=self.layers_skipped,
+            replicas=1,
+            continuous={"slot_steps": int(tel["slot_steps"]),
+                        "decode_steps": int(tel["decode_steps"]),
+                        "pages_peak": int(self.state.pages_peak)})
+        return OBS_STATS.attach_requests(out, self.state)
+
+    def record_requests(self, latencies_ms, missed=None) -> None:
+        """Fold completed-request latency and deadline telemetry into the
+        engine state (host-side write; the LM sessions call this once
+        per completed bucket or pool step)."""
+        self.state = ST.record_requests(self.state, latencies_ms, missed)
+
+    def record_quotes(self, quotes_ms, realized_ms) -> None:
+        """Fold admission-time SLO quote error telemetry (quote vs
+        realized latency; host-side write, like record_requests)."""
+        self.state = ST.record_quotes(self.state, quotes_ms, realized_ms)
 
     def _count_step(self, key):
         self.step_counts[key] = self.step_counts.get(key, 0) + 1
@@ -349,7 +437,9 @@ class LMDecodeEngine:
         larger than the biggest bucket are split into chunks, each with
         its own KV cache.  "continuous": the slot-pool decoder over the
         paged KV cache (rows admitted as slots free up).  "sharded" needs
-        a mesh, which the port does not have yet, and raises."""
+        a mesh, which the port does not have yet, and raises.  Every
+        path runs every gate (the JAX package skips gates below
+        ``min_exit`` only on its sharded path)."""
         if mode is None:
             mode = "eager"
         if mode not in ("sharded", "eager", "continuous"):

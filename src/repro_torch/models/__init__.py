@@ -3,20 +3,25 @@
 ``FAMILIES[family]`` exposes ``init(cfg, seed=, device=)``, ``forward``
 (all exits) and the stem/stage/exit functions the DART serving engine
 drives; ``staged`` says whether a family has them.  The port carries
-the paper's AlexNet, VGG, ResNet and LeViT testbeds, and the assigned
-ViT (ViT-S/16, ViT-H/14), ConvNeXt (ConvNeXt-B) and ResNet-152.
+the paper's AlexNet, VGG, ResNet and LeViT testbeds, the assigned ViT
+(ViT-S/16, ViT-H/14), ConvNeXt (ConvNeXt-B) and ResNet-152, and the
+dense GQA language models (``lm``: TinyLlama-1.1B, InternLM2-20B), which
+the trainer drives and ``engine.lm.LMDecodeEngine`` serves.
 """
 from __future__ import annotations
 
-from repro_torch.models import cnn_zoo, convnext, resnet, vit
+from repro_torch.models import (cnn_zoo, convnext, resnet, transformer_lm,
+                                vit)
 from repro_torch.models.cnn_zoo import AlexNetConfig, LeViTConfig, VGGConfig
 from repro_torch.models.convnext import ConvNeXtConfig
 from repro_torch.models.resnet import ResNetConfig
+from repro_torch.models.transformer_lm import LMConfig
 from repro_torch.models.vit import ViTConfig
 
 
 class _Family:
-    def __init__(self, init, forward, *, stem, stage, exit_, n_stages):
+    def __init__(self, init, forward, *, stem=None, stage=None, exit_=None,
+                 n_stages=None):
         self.init = init
         self.forward = forward
         self.apply_stem = stem
@@ -30,6 +35,7 @@ class _Family:
 
 
 FAMILIES = {
+    "lm": _Family(transformer_lm.lm_init, transformer_lm.lm_forward),
     "vit": _Family(vit.vit_init, vit.vit_forward, stem=vit.apply_stem,
                    stage=vit.apply_stage, exit_=vit.apply_exit,
                    n_stages=vit.num_stages),
@@ -59,7 +65,7 @@ FAMILIES = {
 
 
 def family_of(cfg) -> str:
-    return {ViTConfig: "vit", ConvNeXtConfig: "convnext",
+    return {LMConfig: "lm", ViTConfig: "vit", ConvNeXtConfig: "convnext",
             ResNetConfig: "resnet", AlexNetConfig: "alexnet",
             VGGConfig: "vgg", LeViTConfig: "levit"}[type(cfg)]
 
@@ -68,6 +74,7 @@ def get_family(cfg) -> _Family:
     return FAMILIES[family_of(cfg)]
 
 
-__all__ = ["cnn_zoo", "convnext", "resnet", "vit", "AlexNetConfig",
-           "VGGConfig", "LeViTConfig", "ConvNeXtConfig", "ResNetConfig",
-           "ViTConfig", "FAMILIES", "family_of", "get_family"]
+__all__ = ["cnn_zoo", "convnext", "resnet", "transformer_lm", "vit",
+           "AlexNetConfig", "VGGConfig", "LeViTConfig", "ConvNeXtConfig",
+           "ResNetConfig", "LMConfig", "ViTConfig", "FAMILIES", "family_of",
+           "get_family"]

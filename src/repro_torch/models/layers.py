@@ -422,6 +422,59 @@ def dense_attention(q, k, v, *, causal=False, kv_len=None, scale=None):
     return einsum("bhqk,bkhd->bqhd", w, v)
 
 
+def chunked_attention(q, k, v, *, causal=True, q_chunk=1024, kv_chunk=1024,
+                      scale=None):
+    """Flash-style attention in plain torch: for each Q chunk, a loop over
+    the KV chunks with an online softmax, so no (Sq, Skv) score matrix
+    is held; the peak is O(q_chunk * kv_chunk) per (batch, head).  The
+    JAX package's form (a scan over KV chunks mapped over Q chunks):
+    scores in the input dtype then fp32, fp32 statistics and P.V, the
+    output cast back.  The causal mask compares absolute positions
+    (query i sees keys <= i: Sq and Skv aligned at 0, unlike
+    :func:`dense_attention`, which aligns their ends)."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    n_rep = h // hkv
+    skv = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    if sq % q_chunk or skv % kv_chunk:
+        raise ValueError(f"chunks must divide the lengths: Sq={sq}, "
+                         f"Skv={skv}, q_chunk={q_chunk}, "
+                         f"kv_chunk={kv_chunk}")
+    outs = []
+    for q0 in range(0, sq, q_chunk):
+        qc = q[:, q0:q0 + q_chunk]
+        m = torch.full((b, h, q_chunk), -math.inf, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, h, q_chunk), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((b, h, q_chunk, dh), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, skv, kv_chunk):
+            kc = _repeat_kv(k[:, k0:k0 + kv_chunk], n_rep)
+            vc = _repeat_kv(v[:, k0:k0 + kv_chunk], n_rep)
+            s = torch.einsum("bqhd,bkhd->bhqk", qc, kc).float() * scale
+            if causal:
+                qpos = q0 + torch.arange(q_chunk, device=q.device)[:, None]
+                kpos = k0 + torch.arange(kv_chunk, device=q.device)[None]
+                s = s.masked_fill(kpos > qpos, -math.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # a row masked over the whole chunk so far keeps m = -inf
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe[..., None])
+            p = torch.where(torch.isfinite(s), p, 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p, vc.float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.transpose(1, 2).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
 def decode_attention(q, k_cache, v_cache, kv_len, *, scale=None):
     """Single-token decode attention against a padded KV cache.
     q: (B, 1, H, Dh); caches: (B, S_max, Hkv, Dh); kv_len: (B,)."""
@@ -441,9 +494,15 @@ def gqa_out(p, attn):
     return torch.einsum("bshk,hkd->bsd", attn, p["wo"])
 
 
-def gqa_apply(p, x, cos, sin, *, causal=True):
+def gqa_apply(p, x, cos, sin, *, causal=True, chunked=False,
+              q_chunk=1024, kv_chunk=1024):
     q, k, v = gqa_qkv(p, x, cos, sin)
-    return gqa_out(p, dense_attention(q, k, v, causal=causal))
+    if chunked:
+        o = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk)
+    else:
+        o = dense_attention(q, k, v, causal=causal)
+    return gqa_out(p, o)
 
 
 def gqa_decode(p, x, cos, sin, cache, cache_index: int):

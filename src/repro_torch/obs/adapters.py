@@ -10,6 +10,8 @@ Two kinds of adapter, matching the two ways data flows:
 * **pull-side** ``bind_*`` collectors, registered once per object and
   run at SCRAPE time: ``EngineState`` telemetry, per-lane DAES from
   ``LaneDaesAccumulator``, queue depths from ``RequestQueue``, the
+  continuous LM session's slot-pool and page occupancy and its queue's
+  starvation reservations, the
   engine pool's health, ladder rung and event counters, and the
   kernels' launch counts from ``repro_torch.kernels.dispatch``.
   Collectors hold weakrefs, so a garbage-collected server unregisters
@@ -20,6 +22,10 @@ The metric families and labels are the JAX package's
 its kernels' backend decisions (``dart_kernel_dispatch_total{kernel,
 backend}``, counted when a function is traced), the port the launches
 of its hand-written kernels (``dart_kernel_launches_total{kernel}``).
+The queue's ``starved`` event (capacity the slot refill held back for a
+senior request) is exported by the continuous session, the one
+scheduler that refills slots; the JAX package exports it, at 0, for
+every scheduler.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from repro_torch.obs import OBS
 from repro_torch.obs.metrics import LATENCY_BUCKETS_MS
 
 __all__ = ["record_admit", "record_bucket", "record_completed",
+           "record_lm_bucket", "record_slot_admit", "record_slot_exit",
            "record_retry", "record_hedge", "record_requeue", "record_fault",
            "bind_scheduler", "bind_dispatch", "bind_pool"]
 
@@ -121,6 +128,63 @@ def record_completed(server, reqs: list, results: list, t_dispatch: float,
                       stage=str(int(s)))
 
 
+def record_lm_bucket(session, reqs: list, stage_slices: list, t0: float,
+                     now: float) -> None:
+    """One flushed LM decode bucket: per-request spans with realized
+    per-token exit stages."""
+    reg, tr = OBS.registry, OBS.tracer
+    hist = _latency_hist(reg)
+    comp = reg.counter("dart_requests_completed_total",
+                       "requests completed by lane", ("lane",))
+    toks = reg.counter("dart_lm_tokens_total", "decoded tokens", ())
+    for r, stages in zip(reqs, stage_slices):
+        lane = _lane(r.lane)
+        stages = np.asarray(stages)
+        tr.record("queue_wait", ts=r.t_submit,
+                  dur=max(t0 - r.t_submit, 0.0), rid=r.rid, lane=r.lane)
+        tr.record("compiled_step", ts=t0, dur=max(now - t0, 0.0),
+                  rid=r.rid, lane=r.lane, n=r.n)
+        tr.record("exit", ts=now, rid=r.rid, lane=r.lane,
+                  exits=stages.ravel().tolist(),
+                  n_tokens=int(stages.size),
+                  predicted_cost=float(r.predicted_cost),
+                  deadline_slack_s=None if r.deadline_s is None
+                  else r.deadline_s - now)
+        hist.observe((now - r.t_submit) * 1e3, lane=lane)
+        comp.inc(1, lane=lane)
+        toks.inc(int(stages.size))
+
+
+def record_slot_admit(session, req, now: float) -> None:
+    """Continuous batching: a request entered the slot pool — the
+    ``slot`` span carries its slot ids and the pool pressure."""
+    OBS.tracer.record("slot", ts=now, dur=0.0, rid=req.rid,
+                      lane=req.lane, slots=session.decoder.slots_of(req.rid),
+                      pages_in_use=session.decoder.allocator.in_use,
+                      queue_wait_s=max(now - req.t_submit, 0.0))
+
+
+def record_slot_exit(session, req, stages, lat_ms: float, miss: bool,
+                     now: float) -> None:
+    """Continuous batching: a request left the slot pool finished."""
+    reg, tr = OBS.registry, OBS.tracer
+    lane = _lane(req.lane)
+    stages = np.asarray(stages)
+    tr.record("exit", ts=now, rid=req.rid, lane=req.lane,
+              exits=stages.ravel().tolist(), n_tokens=int(stages.size),
+              deadline_missed=bool(miss),
+              deadline_slack_s=None if req.deadline_s is None
+              else req.deadline_s - now)
+    _latency_hist(reg).observe(lat_ms, lane=lane)
+    reg.counter("dart_requests_completed_total",
+                "requests completed by lane", ("lane",)).inc(1, lane=lane)
+    if miss:
+        reg.counter("dart_deadline_miss_total",
+                    "deadline misses by lane", ("lane",)).inc(1, lane=lane)
+    reg.counter("dart_lm_tokens_total", "decoded tokens",
+                ()).inc(int(stages.size))
+
+
 def record_retry(engine: str, attempt: int) -> None:
     """One retried dispatch (the engine pool re-running a bucket on
     another engine after a failure)."""
@@ -187,31 +251,40 @@ def _collect_scheduler(reg, sched, name: str) -> None:
     for k, v in sched.counters.items():
         ev.set_total(v, event=k)
     q = sched.queue
+    decoder = getattr(sched, "decoder", None)
     ev.set_total(q.shed, event="shed")
     ev.set_total(q.rejected, event="rejected")
+    if decoder is not None:
+        ev.set_total(q.starved, event="starved")
     depth = reg.gauge("dart_queue_depth", "queued requests by lane",
                       ("lane",))
     for k in q.keys():
         depth.set(q.depth(k), lane=_lane(k))
-    reg.gauge("dart_inflight", "dispatched, unmaterialized buckets").set(
-        len(sched._inflight))
+    if hasattr(sched, "_inflight"):
+        reg.gauge("dart_inflight",
+                  "dispatched, unmaterialized buckets").set(
+            len(sched._inflight))
     reg.gauge("dart_service_ms_ema", "EMA of bucket service time").set(
         sched._service_s * 1e3)
 
     # per-lane DAES (Eq. 9) from the streaming accumulator
-    for lane, row in sched.daes.rows().items():
-        for col in ("daes", "speedup", "power_eff", "acc_pct", "n"):
-            reg.gauge(f"dart_lane_{col}",
-                      f"per-lane {col} (Eq. 9 telemetry)",
-                      ("lane",)).set(float(row[col]), lane=_lane(lane))
+    daes = getattr(sched, "daes", None)
+    if daes is not None:
+        for lane, row in daes.rows().items():
+            for col in ("daes", "speedup", "power_eff", "acc_pct", "n"):
+                reg.gauge(f"dart_lane_{col}",
+                          f"per-lane {col} (Eq. 9 telemetry)",
+                          ("lane",)).set(float(row[col]), lane=_lane(lane))
 
     # admission-planner depth priors
-    gd = reg.gauge("dart_depth_prior",
-                   "admission planner expected exit depth",
-                   ("member", "dclass"))
-    for c, d in enumerate(sched.planner.priors()):
-        if d is not None:
-            gd.set(d, member="0", dclass=str(c))
+    planner = getattr(sched, "planner", None)
+    if planner is not None:
+        gd = reg.gauge("dart_depth_prior",
+                       "admission planner expected exit depth",
+                       ("member", "dclass"))
+        for c, d in enumerate(planner.priors()):
+            if d is not None:
+                gd.set(d, member="0", dclass=str(c))
 
     # exit-depth predictor: hit/miss + head-skip counters
     predictor = sched.predictor
@@ -240,6 +313,12 @@ def _collect_scheduler(reg, sched, name: str) -> None:
                 float(qs.quote_ms_sum) / qn)
 
     _collect_engine(reg, sched.engine, name)
+
+    # continuous decoder slot/page occupancy
+    if decoder is not None:
+        for k, v in decoder.occupancy().items():
+            reg.gauge(f"dart_{k}",
+                      "continuous-batching pool occupancy").set(v)
 
 
 def _collect_engine(reg, engine, name: str) -> None:

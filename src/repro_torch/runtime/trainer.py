@@ -1,23 +1,27 @@
-"""The classifier training loop with the paper's multi-exit objective.
+"""The training loop with the paper's multi-exit objective.
 
 ``Trainer(cfg, TrainConfig(...), data_cfg).run()`` trains an AlexNet,
 VGG, ResNet, LeViT, ViT or ConvNeXt of ``repro_torch.models`` on one
 device with the Eq. 18 loss (``core.routing.multi_exit_xent``), AdamW
 or SGD under a warmup-cosine schedule with the batchnorm running
 statistics masked out, and microbatch accumulation; a step then merges
-the train-mode batchnorm statistics into the tree.  With ``ckpt_dir``
+the train-mode batchnorm statistics into the tree.  An ``LMConfig``
+trains with the Eq. 18 loss over a chunked-vocabulary cross-entropy
+(``transformer_lm.lm_multi_exit_loss``) on ``synth-tokens`` sequences of
+``max_seq + 1`` tokens, each input predicting its next token.  With
+``ckpt_dir``
 set, ``run`` checkpoints ``state_tree()`` every ``ckpt_every`` steps
 and at its end (``repro_torch.checkpoint``, the JAX package's format),
 and ``restore`` resumes the latest one, the port's or the JAX
-package's (``convert.restore_checkpoint``).  ViT-H/14's
-``remat`` recomputes each block in the backward pass
-(``models/vit.py``).  ``trainer.params`` is a tree that
-``DartEngine.from_config`` serves as it is: its leaves never require
-grad.
+package's (``convert.restore_checkpoint``).  ViT-H/14's and the LMs'
+``remat`` recomputes each block in the backward pass.
+``trainer.params`` is a tree that
+``DartEngine.from_config`` (or ``LMDecodeEngine``) serves as it is: its
+leaves never require grad.
 
 The reference's other options wait for later slices and raise here:
-the LM and diffusion families (ROADMAP queue 1, items 6 and 8), a mesh,
-FSDP and gradient compression (item 9).
+the diffusion family (ROADMAP queue 1, item 8), a mesh, FSDP and
+gradient compression (item 9).
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ from repro_torch.data.datasets import DatasetConfig
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.models import batchnorm as BN
 from repro_torch.models import family_of, get_family
-from repro_torch.models.transformer_lm import LMConfig
+from repro_torch.models.transformer_lm import lm_multi_exit_loss
 from repro_torch.optim import (GradAccumulator, adamw, sgd, trainable_mask,
                                value_and_grad, warmup_cosine)
 
@@ -72,8 +76,6 @@ class Trainer:
     def __init__(self, model_cfg, train_cfg: TrainConfig,
                  data_cfg: DatasetConfig | None = None, *, mesh=None,
                  params=None, device=None):
-        if isinstance(model_cfg, LMConfig):
-            _refuse("training an LM", 6)
         try:
             self.family_name = family_of(model_cfg)
         except KeyError:
@@ -113,17 +115,28 @@ class Trainer:
 
     def _loss_fn(self, params, batch):
         x, y = batch
+        if self.family_name == "lm":
+            return lm_multi_exit_loss(params, x, y, self.model_cfg,
+                                      policy_weight=self.cfg.policy_weight)
         out = self.family.forward(params, x, self.model_cfg, train=True)
         loss, aux = R.multi_exit_xent(out["exit_logits"], y,
                                       policy_weight=self.cfg.policy_weight)
         aux["bn_updates"] = out.get("bn_updates", {})
         return loss, aux
 
+    def _prepare(self, x, y):
+        """An LM's labels are its inputs shifted by one token."""
+        if self.family_name == "lm":
+            return x[:, :-1], x[:, 1:]
+        return x, y
+
     def train_step(self, batch) -> float:
-        """One step on ``batch`` = (x NHWC images, y labels), numpy or
-        tensors: the loss of the forward before the update, then the
-        optimizer, then the batchnorm merge."""
-        x, y = (torch.as_tensor(a, device=self.device) for a in batch)
+        """One step on ``batch`` = (x NHWC images, y labels), or for an LM
+        (x (B, S + 1) tokens, y unused), numpy or tensors: the loss of the
+        forward before the update, then the optimizer, then the
+        batchnorm merge."""
+        x, y = self._prepare(*(torch.as_tensor(a, device=self.device)
+                               for a in batch))
         if self.cfg.microbatches > 1:
             loss, grads, aux = self._acc.accumulate(self._loss_fn,
                                                     self.params, (x, y))
@@ -146,8 +159,13 @@ class Trainer:
         steps = steps or self.cfg.steps
         own_pipe = pipeline is None
         if own_pipe:
-            pipeline = DataPipeline(self.data_cfg, self.cfg.batch_size,
-                                    start_step=self.step, device=self.device)
+            lm = self.family_name == "lm"
+            pipeline = DataPipeline(
+                self.data_cfg, self.cfg.batch_size,
+                kind="tokens" if lm else None,
+                seq_len=self.model_cfg.max_seq + 1 if lm else None,
+                vocab=self.model_cfg.vocab if lm else None,
+                start_step=self.step, device=self.device)
         t0 = time.time()
         try:
             while self.step < steps:

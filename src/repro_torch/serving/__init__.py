@@ -16,7 +16,7 @@ traffic:
         print(server.stats()["requests"]["latency_ms"])   # p50/p95/p99
 
 Pieces (a port of the JAX package's ``repro/serving`` for the
-classifier engine):
+classifier and LM engines):
 
 * :class:`AsyncDartServer` — the scheduler façade (loop.py): background
   dispatcher, size-or-deadline flush.
@@ -30,16 +30,22 @@ classifier engine):
   and SLO quotes.  Enable via ``SchedulerConfig(predict="conservative")``
   (same decisions) or ``"aggressive"`` (opt-in).
 * :class:`RequestQueue` — lane-keyed backpressure queue (queue.py).
+* :class:`LMDecodeSession` / :class:`LMContinuousSession` — the LM
+  decode engine behind the same scheduler (lm_session.py;
+  ``LMDecodeEngine.session()``): bucketed ``generate`` calls laned by
+  ``(prompt_len, n_new)``, or continuous slot refill.
 * :class:`EnginePool` / :class:`PooledDartServer` — fault-tolerant
   serving over several engines (resilience.py): retry, hedging,
   quarantine, the degradation ladder, drain/join from an
-  ``EngineState`` snapshot.
+  ``EngineState`` snapshot; ``pooled_lm_session`` pools LM engines.
 
 Scheduling never changes routing under a fixed policy: every completed
 request's outputs are those of serving it alone through
 ``engine.infer`` (the admission alpha is handed to the engine, Alg. 1
 runs unchanged).
 """
+from repro_torch.serving.lm_session import (LMContinuousSession,
+                                            LMDecodeSession)
 from repro_torch.serving.loop import AsyncDartServer, SchedulerConfig
 from repro_torch.serving.planner import AdmissionPlanner
 from repro_torch.serving.predict import ExitDepthPredictor
@@ -49,10 +55,12 @@ from repro_torch.serving.request import (DispatchError, InvalidEngineOutput,
                                          RequestShed)
 from repro_torch.serving.resilience import (EnginePool, NoHealthyEngines,
                                             PooledDartServer,
-                                            ResilienceConfig)
+                                            ResilienceConfig,
+                                            pooled_lm_session)
 
 __all__ = ["AsyncDartServer", "SchedulerConfig", "AdmissionPlanner",
            "ExitDepthPredictor", "RequestQueue", "Request",
            "RequestRejected", "RequestShed", "DispatchError",
            "InvalidEngineOutput", "EnginePool", "PooledDartServer",
-           "ResilienceConfig", "NoHealthyEngines"]
+           "ResilienceConfig", "NoHealthyEngines", "LMDecodeSession",
+           "LMContinuousSession", "pooled_lm_session"]

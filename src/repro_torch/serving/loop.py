@@ -26,6 +26,11 @@ Flush policy (size-or-deadline):
   them until deadline pressure (or a full bucket) maximizes
   consolidation at exactly the loads where it pays.
 
+The lane queues, the flush policy, the dispatcher thread and shutdown
+live in ``_BucketScheduler``, which the LM decode sessions
+(``serving/lm_session.py``) share; ``AsyncDartServer`` adds admission
+planning, the pipelined dispatch and completion.
+
 The loop keeps up to ``pipeline_depth`` buckets dispatched and not yet
 completed, and completes (resolving futures, folding latency telemetry
 into ``EngineState``) when the pipeline is full or there is nothing left
@@ -92,6 +97,10 @@ class SchedulerConfig:
     pipeline_depth: max dispatched, not yet completed buckets
     edges:          difficulty-class boundaries on Eq. 8 alpha
     sample_ndim:    rank of ONE sample (submit auto-batches bare samples)
+    starve_ms:      continuous slot refill only — how long the most
+                    urgent queued request may be passed over for lack
+                    of capacity before freed slots are reserved for it
+                    (see ``RequestQueue.pop_next``)
     predict:        admission-time exit-depth prediction — "off" |
                     "conservative" (head-skip only where Eq. 19
                     provably can't fire: bit-identical decisions) |
@@ -112,50 +121,28 @@ class SchedulerConfig:
     pipeline_depth: int = 2
     edges: tuple = DIFF.DEFAULT_EDGES
     sample_ndim: int = 3
+    starve_ms: float = 50.0
     predict: str = "off"
 
 
-class AsyncDartServer:
-    """The difficulty-aware async request scheduler over a DartEngine.
+class _BucketScheduler:
+    """Lane-queue and dispatcher-thread machinery shared by the
+    classifier scheduler (:class:`AsyncDartServer`) and the LM decode
+    sessions (:mod:`repro_torch.serving.lm_session`).
 
-        engine = DartEngine.from_config(cfg, params, ...)
-        server = AsyncDartServer(engine)
-        fut = server.submit(x, deadline_ms=50)
-        out = fut.result()          # same keys as engine.infer + latency
-        server.stats()              # engine stats + p50/p95/p99 + misses
-        server.close()
+    Subclasses implement ``_admit`` (build a Request) and ``_dispatch``
+    (serve a flushed run of requests); the base owns admission, flush
+    timing, the worker thread, and shutdown."""
 
-    Under a fixed policy, scheduler decisions never change routing
-    decisions: completed outputs are those of serving each request alone
-    through ``engine.infer`` (with section II.C adaptation on,
-    reordering shifts where the periodic updates fall).  On a card, a
-    kernel that fails to launch fails its bucket's futures with
-    :class:`DispatchError`; nothing falls back to the plain versions.
-
-    The JAX package splits the lane-queue and dispatcher-thread half
-    into a base class that its LM decode session shares; the port has
-    one scheduler, so it is one class."""
-
-    def __init__(self, engine, cfg: SchedulerConfig = SchedulerConfig(),
-                 *, clock=time.monotonic, start: bool = True):
-        self.engine = engine
+    def __init__(self, cfg: SchedulerConfig, *, clock=time.monotonic,
+                 start: bool = True):
         self.cfg = cfg
         self._clock = clock
-        self.planner = AdmissionPlanner(engine, edges=cfg.edges)
-        self.predictor = None if cfg.predict == "off" else \
-            ExitDepthPredictor(engine.n_exits, edges=cfg.edges,
-                               mode=cfg.predict,
-                               priors=self.planner.priors)
-        # Per-lane Eq. 9 telemetry: static reference = the full network
-        self.daes = DAES.LaneDaesAccumulator(
-            static_macs=float(np.asarray(engine.cum_costs)[-1]))
-        self._inflight: deque = deque()
         # Effective consolidation target: cfg.max_batch clamped to what
         # ONE dispatch can serve as a single padded shape — flushing
         # more than the engine's largest bucket would make bucket_key
         # raise mid-flush and wedge the dispatcher.
-        self.max_batch = max(1, min(cfg.max_batch,
-                                    engine.compactor.max_bucket))
+        self.max_batch = max(1, min(cfg.max_batch, self._max_batch_cap()))
         self.queue = RequestQueue(max_queue=cfg.max_queue,
                                   policy=cfg.policy)
         self._rid = itertools.count()
@@ -173,6 +160,48 @@ class AsyncDartServer:
         if start:
             self.start()
 
+    # -- subclass hooks -------------------------------------------------
+    def _admit(self, x, deadline_ms, priority, *, now, **kw) -> Request:
+        """Build the Request.  ``now`` is stamped at the START of
+        submit(), so admission work (the Eq. 8 estimate) counts toward
+        the request's latency and deadline like any other service
+        time."""
+        raise NotImplementedError
+
+    def _dispatch(self, reqs: list, reason: str) -> None:
+        raise NotImplementedError
+
+    def _engine_call(self, fn):
+        """Run one engine call.  ``fn(engine) -> result``; the default
+        binds the scheduler's single engine.  The resilience layer
+        (:class:`~repro_torch.serving.resilience.EnginePool`) overrides
+        this to add engine selection, retry/backoff and hedging without
+        the dispatch site knowing."""
+        return fn(self.engine)
+
+    def _on_dispatch_error(self, reqs: list, exc: Exception) -> bool:
+        """Dispatch-failure hook: return True when the requests were
+        re-routed (e.g. requeued by the pool after an engine death) and
+        must NOT have their futures failed.  Default: unhandled."""
+        return False
+
+    def _drain_one(self) -> bool:
+        """Complete one in-flight bucket if any; False when idle."""
+        return False
+
+    def _bucket_key(self, n: int) -> int:
+        """Padded dispatch shape for n samples.  Must be TOTAL (never
+        raise): oversized single requests pass through take() and are
+        dispatched unpadded."""
+        return n
+
+    def _max_batch_cap(self) -> int:
+        """Largest sample count one dispatch can serve as one shape."""
+        return self.cfg.max_batch
+
+    def _has_inflight(self) -> bool:
+        return False
+
     # -- lifecycle ------------------------------------------------------
     def start(self) -> None:
         if self._thread is not None:
@@ -182,11 +211,11 @@ class AsyncDartServer:
         self._thread.start()
 
     def submit(self, x, deadline_ms: float | None = None,
-               priority: int = 0) -> Future:
+               priority: int = 0, **kw) -> Future:
         """Enqueue one request; resolves to its per-request result dict
         (or raises RequestShed/RequestRejected under backpressure)."""
         t0 = self._clock()
-        req = self._admit(x, deadline_ms, priority, now=t0)
+        req = self._admit(x, deadline_ms, priority, now=t0, **kw)
         # The closed check and the push share the cv lock with close():
         # a request either lands before _closed is set (close's flush
         # serves it) or is rejected — never silently stranded in a lane
@@ -219,74 +248,6 @@ class AsyncDartServer:
 
     def __exit__(self, *exc):
         self.close()
-
-    # -- admission ------------------------------------------------------
-    def _bucket_key(self, n: int) -> int:
-        """Padded dispatch shape for n samples.  TOTAL (never raises):
-        an oversized single request passes through take() and is
-        dispatched unpadded."""
-        if n > self.engine.compactor.max_bucket:
-            return n
-        return self.engine.bucket_key(n)
-
-    def _admit(self, x, deadline_ms, priority, *, now) -> Request:
-        """Build the Request.  ``now`` is stamped at the START of
-        submit(), so admission work (the Eq. 8 estimate) counts toward
-        the request's latency and deadline like any other service
-        time."""
-        x = np.asarray(x)
-        if x.ndim == self.cfg.sample_ndim:
-            x = x[None]
-        alpha, lane, cost = self.planner.admit(x)
-        if self.cfg.policy == "degrade-alpha" \
-                and self.queue.depth(lane) >= self.cfg.max_queue:
-            alpha = alpha * self.cfg.degrade_factor
-            lane, cost = self.planner.classify(alpha)
-            self.counters["degraded"] += 1
-        payload = {}
-        if self.predictor is not None:
-            depth, band = self.predictor.admit_info(float(np.mean(alpha)))
-            quote = self.planner.quote_ms(depth)
-            if (quote is not None and deadline_ms is not None
-                    and self.cfg.policy == "degrade-alpha"
-                    and quote > deadline_ms):
-                # the quote says this request cannot make its SLO at
-                # its predicted depth: degrade it at admission instead
-                # of letting it miss
-                alpha = alpha * self.cfg.degrade_factor
-                lane, cost = self.planner.classify(alpha)
-                self.counters["degraded"] += 1
-                depth, band = self.predictor.admit_info(
-                    float(np.mean(alpha)))
-                quote = self.planner.quote_ms(depth)
-            # predicted-depth lane component: a flushed bucket's rows
-            # are predicted to exit together
-            lane = (lane, band)
-            payload = {"quote_ms": quote, "depth": depth}
-            if quote is not None:
-                cost = quote    # predicted_cost becomes the SLO quote
-        return Request(
-            rid=next(self._rid), x=x, n=x.shape[0], alpha=alpha,
-            lane=lane, predicted_cost=cost, priority=priority,
-            t_submit=now,
-            deadline_s=None if deadline_ms is None
-            else now + deadline_ms / 1e3,
-            future=Future(), payload=payload)
-
-    # -- seams of the resilience layer ----------------------------------
-    def _engine_call(self, fn):
-        """Run one engine call.  ``fn(engine) -> result``; the default
-        binds the scheduler's single engine.  The resilience layer
-        (:class:`~repro_torch.serving.resilience.EnginePool`) overrides
-        this to add engine selection, retry/backoff and hedging without
-        the dispatch site knowing."""
-        return fn(self.engine)
-
-    def _on_dispatch_error(self, reqs: list, exc: Exception) -> bool:
-        """Dispatch-failure hook: return True when the requests were
-        re-routed (e.g. requeued by the pool after an engine death) and
-        must NOT have their futures failed.  Default: unhandled."""
-        return False
 
     # -- scheduling -----------------------------------------------------
     def _select_flush(self, now: float):
@@ -400,7 +361,8 @@ class AsyncDartServer:
                     busy = not self.queue.empty
                     self._cv.wait(self._wait_timeout(self._clock())
                                   if busy else
-                                  (0.002 if self._inflight else None))
+                                  (0.002 if self._has_inflight()
+                                   else None))
                 if self._stop:
                     return
             try:
@@ -416,6 +378,91 @@ class AsyncDartServer:
                 OBS_LOG.error("scheduler", "scheduler loop error",
                               exc=e, scheduler=type(self).__name__)
                 time.sleep(0.01)
+
+
+
+class AsyncDartServer(_BucketScheduler):
+    """The difficulty-aware async request scheduler over a DartEngine.
+
+        engine = DartEngine.from_config(cfg, params, ...)
+        server = AsyncDartServer(engine)
+        fut = server.submit(x, deadline_ms=50)
+        out = fut.result()          # same keys as engine.infer + latency
+        server.stats()              # engine stats + p50/p95/p99 + misses
+        server.close()
+
+    Under a fixed policy, scheduler decisions never change routing
+    decisions: completed outputs are those of serving each request alone
+    through ``engine.infer`` (with section II.C adaptation on,
+    reordering shifts where the periodic updates fall).  On a card, a
+    kernel that fails to launch fails its bucket's futures with
+    :class:`DispatchError`; nothing falls back to the plain versions."""
+
+    def __init__(self, engine, cfg: SchedulerConfig = SchedulerConfig(),
+                 *, clock=time.monotonic, start: bool = True):
+        self.engine = engine
+        self.planner = AdmissionPlanner(engine, edges=cfg.edges)
+        self.predictor = None if cfg.predict == "off" else \
+            ExitDepthPredictor(engine.n_exits, edges=cfg.edges,
+                               mode=cfg.predict,
+                               priors=self.planner.priors)
+        # Per-lane Eq. 9 telemetry: static reference = the full network
+        self.daes = DAES.LaneDaesAccumulator(
+            static_macs=float(np.asarray(engine.cum_costs)[-1]))
+        self._inflight: deque = deque()
+        super().__init__(cfg, clock=clock, start=start)
+
+    # -- hooks ----------------------------------------------------------
+    def _max_batch_cap(self) -> int:
+        return self.engine.compactor.max_bucket
+
+    def _bucket_key(self, n: int) -> int:
+        """Padded dispatch shape for n samples.  TOTAL (never raises):
+        an oversized single request passes through take() and is
+        dispatched unpadded."""
+        if n > self.engine.compactor.max_bucket:
+            return n
+        return self.engine.bucket_key(n)
+
+    def _admit(self, x, deadline_ms, priority, *, now) -> Request:
+        x = np.asarray(x)
+        if x.ndim == self.cfg.sample_ndim:
+            x = x[None]
+        alpha, lane, cost = self.planner.admit(x)
+        if self.cfg.policy == "degrade-alpha" \
+                and self.queue.depth(lane) >= self.cfg.max_queue:
+            alpha = alpha * self.cfg.degrade_factor
+            lane, cost = self.planner.classify(alpha)
+            self.counters["degraded"] += 1
+        payload = {}
+        if self.predictor is not None:
+            depth, band = self.predictor.admit_info(float(np.mean(alpha)))
+            quote = self.planner.quote_ms(depth)
+            if (quote is not None and deadline_ms is not None
+                    and self.cfg.policy == "degrade-alpha"
+                    and quote > deadline_ms):
+                # the quote says this request cannot make its SLO at
+                # its predicted depth: degrade it at admission instead
+                # of letting it miss
+                alpha = alpha * self.cfg.degrade_factor
+                lane, cost = self.planner.classify(alpha)
+                self.counters["degraded"] += 1
+                depth, band = self.predictor.admit_info(
+                    float(np.mean(alpha)))
+                quote = self.planner.quote_ms(depth)
+            # predicted-depth lane component: a flushed bucket's rows
+            # are predicted to exit together
+            lane = (lane, band)
+            payload = {"quote_ms": quote, "depth": depth}
+            if quote is not None:
+                cost = quote    # predicted_cost becomes the SLO quote
+        return Request(
+            rid=next(self._rid), x=x, n=x.shape[0], alpha=alpha,
+            lane=lane, predicted_cost=cost, priority=priority,
+            t_submit=now,
+            deadline_s=None if deadline_ms is None
+            else now + deadline_ms / 1e3,
+            future=Future(), payload=payload)
 
     # -- dispatch -------------------------------------------------------
     def _infer_batch(self, reqs: list, x, alpha) -> dict:
@@ -455,11 +502,13 @@ class AsyncDartServer:
             self._complete_safe(*self._inflight.popleft())
 
     def _drain_one(self) -> bool:
-        """Complete one in-flight bucket if any; False when idle."""
         if not self._inflight:
             return False
         self._complete_safe(*self._inflight.popleft())
         return True
+
+    def _has_inflight(self) -> bool:
+        return bool(self._inflight)
 
     def _complete_safe(self, reqs, out, t_dispatch) -> None:
         try:

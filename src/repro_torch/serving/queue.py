@@ -3,7 +3,8 @@ backpressure.
 
 Lanes are FIFO deques keyed by whatever the scheduler packs together
 (the difficulty class, with the predicted-depth band when exit-depth
-prediction is on).  Keeping lanes cost-homogeneous is the difficulty-aware part
+prediction is on, for classifier serving; ``(prompt_len, n_new)`` for
+LM decode).  Keeping lanes cost-homogeneous is the difficulty-aware part
 of the design: a bucket flushed from one lane contains requests with
 similar predicted exit depth, so one hard straggler never drags a
 bucket of easy requests through every stage.
@@ -42,6 +43,7 @@ class RequestQueue:
         self._lock = threading.Lock()
         self.shed = 0
         self.rejected = 0
+        self.starved = 0    # pop_next held capacity for a senior head
 
     # ------------------------------------------------------------------
     # admission
@@ -105,6 +107,11 @@ class RequestQueue:
         with self._lock:
             return not any(self._lanes.values())
 
+    def oldest_submit(self, key) -> float | None:
+        with self._lock:
+            lane = self._lanes.get(key)
+            return lane[0].t_submit if lane else None
+
     def oldest_undeadlined(self, key) -> float | None:
         """Submit time of the oldest BEST-EFFORT (deadline-less) request
         — the hold-flush clock.  Deadline'd requests are governed by
@@ -120,6 +127,54 @@ class RequestQueue:
             lane = self._lanes.get(key) or ()
             ds = [r.deadline_s for r in lane if r.deadline_s is not None]
             return min(ds) if ds else None
+
+    def pop_next(self, fits, *, reserve_after_s: float = 0.05,
+                 now: float | None = None,
+                 prefer=None) -> Request | None:
+        """Pop the most urgent lane head that ``fits`` — the continuous
+        slot-refill primitive (no bucket consolidation; one request at
+        a time as slots free up).
+
+        Lane heads are ranked (priority desc, submit time asc, rid
+        asc).  If the MOST urgent head does not fit right now and has
+        already waited ``reserve_after_s``, returns None WITHOUT
+        considering junior heads: freed capacity is reserved for the
+        starved senior instead of an endless stream of smaller juniors
+        backfilling around it.
+
+        ``prefer`` (optional, ``Request -> float``) breaks ties among
+        SAME-URGENCY fitting heads (equal priority, submit times within
+        ``reserve_after_s``): the LM continuous session scores
+        candidates by how well their predicted exit depth matches the
+        slot pool's current stage mix.  Urgency order is never
+        violated: a strictly more urgent fitting head still wins
+        regardless of score."""
+        with self._lock:
+            heads = [lane[0] for lane in self._lanes.values() if lane]
+            heads.sort(key=lambda r: (-r.priority, r.t_submit, r.rid))
+            best = None
+            for r in heads:
+                if fits(r):
+                    if prefer is None:
+                        self._lanes[r.lane].popleft()
+                        return r
+                    if best is None:
+                        best = r
+                    elif (r.priority == best.priority
+                            and r.t_submit - best.t_submit
+                            <= reserve_after_s):
+                        if prefer(r) > prefer(best):
+                            best = r
+                    else:
+                        break   # strictly less urgent: stop scanning
+                    continue
+                if best is None and now is not None \
+                        and now - r.t_submit >= reserve_after_s:
+                    self.starved += 1
+                    return None     # hold capacity for this head
+            if best is not None:
+                self._lanes[best.lane].popleft()
+            return best
 
     # ------------------------------------------------------------------
     # flush
@@ -153,3 +208,10 @@ class RequestQueue:
                 out.append(lane.popleft())
                 total = new_total
             return out
+
+    def drain(self) -> list[Request]:
+        """Pop everything (close/shutdown path), FIFO by admission id."""
+        with self._lock:
+            reqs = [r for lane in self._lanes.values() for r in lane]
+            self._lanes.clear()
+        return sorted(reqs, key=lambda r: r.rid)

@@ -667,8 +667,8 @@ class EnginePool:
 
 class _PooledSchedulerMixin:
     """The scheduler-side half of pooling, mixed into the classifier
-    scheduler (the JAX package mixes it into its cascade and LM
-    schedulers too): routes ``_engine_call`` through the pool,
+    scheduler and the bucketed LM session (the JAX package mixes it
+    into its cascade scheduler too): routes ``_engine_call`` through the pool,
     turns NoHealthyEngines into a bounded backpressure-bypassing
     requeue, sheds below the rung-4 priority floor, fires the
     ``complete`` cut point, and tracks which rids any fault touched."""
@@ -843,7 +843,13 @@ def pooled_cascade_server(pool: EnginePool,
 
 
 def pooled_lm_session(pool: EnginePool, cfg=None, **kw):
-    """The pooled LM decode session waits for the LM session slice."""
-    raise NotImplementedError(
-        "the LM decode session is not ported yet (ROADMAP queue 1, "
-        "item 5)")
+    """Pooled bucketed LM decode session: ``generate`` calls ride
+    ``pool.call`` (retry, hedge and requeue as for classifier
+    buckets)."""
+    from repro_torch.serving.lm_session import LMDecodeSession
+
+    class PooledLMSession(_PooledSchedulerMixin, LMDecodeSession):
+        def __init__(self, pool, cfg, **kw):
+            self._install_pool(pool)
+            super().__init__(pool.primary, cfg, **kw)
+    return PooledLMSession(pool, cfg, **kw)

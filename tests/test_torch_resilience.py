@@ -644,11 +644,22 @@ def test_heartbeat_monitor_declares_a_silent_worker_dead():
 
 
 def test_cascade_and_lm_pools_wait_for_their_slices():
+    """The cascade pool waits for item 7; the LM pool came with item 5
+    (test_torch_lm_session.py drives it through an engine death)."""
     pool = EnginePool({"a": _Dummy()}, heartbeat=False)
     with pytest.raises(NotImplementedError, match="item 7"):
         res.pooled_cascade_server(pool)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        res.pooled_lm_session(pool)
+    pool.close()
+    from repro_torch.configs.tinyllama_1_1b import REDUCED
+    from repro_torch.core.routing import DartParams
+    from repro_torch.engine.lm import LMDecodeEngine
+    from repro_torch.models.transformer_lm import lm_init
+    eng = LMDecodeEngine(REDUCED, lm_init(REDUCED, device="cpu"),
+                         DartParams.default(REDUCED.n_exits), device="cpu")
+    pool = EnginePool({"l0": eng}, heartbeat=False)
+    sess = res.pooled_lm_session(pool, start=False)
+    assert sess.pool is pool and sess.engine is eng
+    sess.close()
     pool.close()
 
 
