@@ -172,7 +172,8 @@ Phases, each printing one JSON line:
    holdout served on the card leaves at ``route_policy``'s exits.  No
    accuracy and no early exit is asserted: synth-CIFAR is no Table II
    result.
-6. lm-strict — TinyLlama-1.1B at full width and depth in fp32 (seeded
+6. lm-strict — TinyLlama-1.1B at full width in fp32, 11 of its 22
+   layers (exits after layers 2, 5 and 7; the script's time; seeded
    random weights, tau per exit from quantiles of the first step's
    conf): 40 requests of 16 new tokens over 16 slots (prompts of 16 to
    64 tokens, admitted at most 4 a step, so admission and release happen
@@ -184,8 +185,8 @@ Phases, each printing one JSON line:
    measured logit or conf difference allows it; the compared decisions
    at least half).
 7. lm-serving — the published bf16 configuration at a cut depth (6 of
-   22 layers, exits after layers 1, 2 and 3: the script's time; the
-   full depth decodes in lm-session) at n_slots 16 and 64 (max_len
+   22 layers, exits after layers 1, 2 and 3: the script's time) at
+   n_slots 16 and 64 (max_len
    1024): tokens/s (median of the timed runs), the decode step and
    per-request prefill times, the exit-stage histogram, the mean
    layer fraction, peak memory, a torch.profiler window of decode steps
@@ -193,8 +194,9 @@ Phases, each printing one JSON line:
    step, the kernels that take the time), and the launches of exit_head
    and paged_gather, exactly 4 and 12 per decode step; at 16 slots the
    untimed warm-up run held to the bf16 eager oracle as in lm-strict.
-8. lm-train — TinyLlama-1.1B at full width and depth (22 layers,
-   d_model 2048, vocab 32000, bf16, ``remat``) trained through
+8. lm-train — TinyLlama-1.1B at full width and 11 of its 22 layers
+   (exits as lm-strict's; d_model 2048, vocab 32000, bf16, ``remat``;
+   the script's time) trained through
    ``Trainer`` from the port's seeded init: AdamW, batch 8 of
    synth-tokens sequences of 257 tokens (max_seq cut to 256: a length,
    not a width) whose motifs use the first 256 token ids, 60 steps.
@@ -210,7 +212,7 @@ Phases, each printing one JSON line:
    Poisson stream at 0.8 x the tokens/s of a drain of the same requests
    just before, divided by the mean new tokens, deadline 2 s: tokens/s,
    p50/p95/p99 latency, misses, ``starved``, launches a decode step
-   (exactly 4 exit heads and 44 gathers); every decision held to the
+   (exactly 4 exit heads and 22 gathers); every decision held to the
    eager oracle as in lm-strict;
    (b) ``LMDecodeSession`` over the same engine: four lanes forced out
    as four buckets, each request equal to ``generate`` on its bucket;
@@ -218,9 +220,10 @@ Phases, each printing one JSON line:
    under a seeded plan that kills one engine once: every request
    resolves exactly once, each untouched one bit-equal to its bucket on
    one engine.
-10. lm-internlm — InternLM2-20B at its published width and depth (48
-   layers, d_model 6144, 48/8 heads, d_ff 16384, vocab 92544, ~19.9 B
-   parameters in bf16, seeded random weights drawn on the card) through
+10. lm-internlm — InternLM2-20B at its published width (d_model 6144,
+   48/8 heads, d_ff 16384, vocab 92544) and 24 of its 48 layers (exits
+   after layers 5, 11 and 17; the script's time; ~10.5 B parameters in
+   bf16, seeded random weights drawn on the card) through
    ``ContinuousLMDecoder`` at 16 slots and max_len 512, 32 requests:
    tokens/s, decode-step ms, peak memory, exits, launches exact, a
    profiler window of decode steps with 16 slots full (as lm-serving's); 4
@@ -230,15 +233,39 @@ Phases, each printing one JSON line:
    The kernels phase holds
    exit_head at (16, 6144, 92544) bf16 and paged_gather at InternLM2's
    K/V views against their plain versions.
-11. the kernels summary line, every number in it measured or computed
+11. lm-granite — granite-moe-3b-a800m at its published width and depth
+   (32 layers, d_model 1536, 24/8 heads, a MoE FFN in every layer: 40
+   experts of d_ff 512, top-8; vocab 49155; ~3.3 B parameters, ~0.8 B
+   active a token, bf16, seeded random weights drawn on the card)
+   through ``ContinuousLMDecoder`` at 16 slots, page 8, max_len 512, 32
+   requests drawn as lm-internlm's.  A MoE call's capacity drops the
+   later pairs of a busy expert, so a row's output depends on the rows
+   that share the call: the eager oracle (compacted survivors) routes
+   other rows, and the served run is held instead to the step-replay
+   oracle (``lm_step_replay``): each served step runs again from its
+   snapshot with the plain exit head and gather and the served fire
+   pattern imposed; every stage's hidden rows must be bit-equal to the
+   served ones, and every decision of the plain head is compared as in
+   lm-strict.  A second run from a fresh pool is timed (tokens/s,
+   decode-step and admission ms, launches exact, peak memory, a
+   profiler window) and must decide the same.  The independent MoE
+   check (``moe_card_check``) holds the bf16 ``moe_apply`` on one
+   served decode step's and one 64-token prefill's MoE inputs at three
+   layers to a float32 per-token reference routed in float64 on the
+   host: the kept pairs equal, the outputs within a tolerance derived
+   from the dense SwiGLU's measured bf16 error; the prefill must drop
+   pairs.  The kernels phase holds exit_head at (16, 1536, 49155) bf16
+   and paged_gather at granite's views against their plain versions.
+12. the kernels summary line, every number in it measured or computed
    in this run (the gate's and the difficulty kernel's launches in the
    serving, resilience (the faulted run), LeViT-256 engine and table2
    phases beside VGG-16's; under
    ``vision224`` each one timed at the vision phases' shape, the gate
    at (1024, 1000) bf16 and ``difficulty`` at (1024, 224, 224, 3), with
    the launches of those phases; the LM kernels' launches in lm-session
-   (a) and lm-internlm, and under ``internlm`` their times at
-   InternLM2's shapes), then the ``ok`` line.
+   (a), lm-internlm and lm-granite, and under ``internlm`` and
+   ``granite`` their times at those models' shapes), then the ``ok``
+   line.
 
 Every decision check that exempts rows at a gate's edge (masked against
 compacted, card against CPU, the card's routes, serving against each
@@ -376,7 +403,7 @@ LM_TRUNK_TOL = {"bfloat16": (BF16_LOGIT_TOL, BF16_CONF_RTOL),
 LM_BETA = 1e-4
 #: timed serving runs per pool size (after one warm-up run)
 SERVE_RUNS = 3
-#: lm-train: TinyLlama-1.1B at full width and depth (bf16, remat, AdamW
+#: lm-train: TinyLlama-1.1B at full width (bf16, remat, AdamW
 #: under warmup-cosine) on synth-tokens; max_seq cut from 4096 to 256
 #: (a sequence length, not a width)
 LM_TRAIN_SEQ = 256
@@ -417,12 +444,27 @@ LM_INTERNLM_ORACLE = 4
 #: float32 at a cut depth, exits at InternLM2's fractions of depth
 LM_INTERNLM_FP32_LAYERS = 8
 LM_INTERNLM_FP32_EXITS = (1, 3, 5)
+#: lm-granite: requests served (drawn as lm-internlm draws them), the
+#: decoder's slots and max_len, and the prompt length of the prefill
+#: whose MoE inputs the independent MoE check takes (64 tokens: capacity
+#: 16 against a mean load of 12.8 pairs an expert)
+LM_GRANITE_REQUESTS = 32
+LM_GRANITE_SLOTS = 16
+LM_GRANITE_MAX_LEN = 512
+LM_GRANITE_PREFILL = 64
 #: lm-serving runs TinyLlama at full width and a cut depth (exits at its
 #: fractions of depth), which keeps the script within its time with the
-#: lm-train, lm-session and lm-internlm phases (PERF.md section 6);
-#: lm-session (a) decodes TinyLlama at full depth
+#: lm-train, lm-session and lm-internlm phases (PERF.md section 6)
 LM_SERVING_LAYERS = 6
 LM_SERVING_EXITS = (1, 2, 3)
+#: lm-strict, lm-train and lm-session run TinyLlama at full width and 11
+#: of its 22 layers, and lm-internlm InternLM2-20B at 24 of its 48, exits
+#: at their fractions of depth: with lm-granite added the whole script
+#: took 1 098 s of its 1 200 on a slow host (PERF.md section 6)
+LM_TINYLLAMA_LAYERS = 11
+LM_TINYLLAMA_EXITS = (2, 5, 7)
+LM_INTERNLM_LAYERS = 24
+LM_INTERNLM_EXITS = (5, 11, 17)
 
 #: the serving phase: open-loop Poisson streams of single eval images
 #: (a pool drawn before the phase), each SERVE_SECS long, at these
@@ -860,6 +902,10 @@ def head_inputs(b, d, v, dtype, gen):
 #: K/V views (max_len 512)
 INTERNLM_HEAD = (16, 6144, 92544, torch.bfloat16)
 INTERNLM_PAGED = (16, 64, 8, (8, 128), torch.bfloat16)
+#: the same of granite-moe-3b-a800m in the lm-granite phase: V = 49155
+#: is odd, so the last vocabulary tile is partial with an odd count
+GRANITE_HEAD = (16, 1536, 49155, torch.bfloat16)
+GRANITE_PAGED = (16, 64, 8, (8, 64), torch.bfloat16)
 
 HEAD_CASES = ([(b, 2048, 32000, dt) for dt in (torch.bfloat16, torch.float32)
                for b in (1, 16, 64)]
@@ -867,15 +913,18 @@ HEAD_CASES = ([(b, 2048, 32000, dt) for dt in (torch.bfloat16, torch.float32)
                  (256, 2048, 32000, torch.bfloat16)]
               # InternLM2-20B's exit heads at the decoder's 16 slots: K
               # of 96 tiles, V not a multiple of the vocabulary tile
-              + [INTERNLM_HEAD]
+              + [INTERNLM_HEAD, GRANITE_HEAD]
               + [(7, 72, 1003, dt) for dt in (torch.bfloat16, torch.float32)]
               + [(5, 70, 1003, torch.bfloat16)])
 
 
 def check_exit_head(ref, kern, gen):
     """Each case against a float64 evaluation and the plain chain; returns
-    (worst conf error, the row of the main-path case, InternLM2's row)."""
-    worst, main, internlm = 0.0, None, None
+    (worst conf error, {"main", "internlm", "granite"}: the rows of the
+    main-path case and of InternLM2's and granite's heads)."""
+    worst, rows = 0.0, {}
+    named = {(64, 2048, 32000, torch.bfloat16): "main",
+             INTERNLM_HEAD: "internlm", GRANITE_HEAD: "granite"}
     for b, d, v, dtype in HEAD_CASES:
         h, scale, tab, tie_idx = head_inputs(b, d, v, dtype, gen)
         conf0 = kern.exit_head_gate_cuda(
@@ -935,12 +984,10 @@ def check_exit_head(ref, kern, gen):
                    fp32_fma_bound_ms=fma_ms)
         emit(**row)
         worst = max(worst, err)
-        if (b, d, v, dtype) == (64, 2048, 32000, torch.bfloat16):
-            main = row
-        if (b, d, v, dtype) == INTERNLM_HEAD:
-            internlm = row
+        if (b, d, v, dtype) in named:
+            rows[named[(b, d, v, dtype)]] = row
         del h, scale, tab
-    return worst, main, internlm
+    return worst, rows
 
 
 #: (slots, pages per slot, page size, trailing dims, dtype): the serving
@@ -948,7 +995,7 @@ def check_exit_head(ref, kern, gen):
 #: and an odd page of 60 bytes (the byte-copy path)
 PAGED_CASES = [(16, 128, 8, (4, 64), torch.bfloat16),
                (64, 128, 8, (4, 64), torch.bfloat16),
-               INTERNLM_PAGED,
+               INTERNLM_PAGED, GRANITE_PAGED,
                (16, 16, 8, (4, 64), torch.float32),
                (5, 7, 3, (5,), torch.float32)]
 
@@ -959,9 +1006,11 @@ def paged_bound(s, p, page_bytes):
 
 
 def check_paged_gather(ref, kern, gen):
-    """Each case bit-equal to the plain version; returns the rows of the
-    main-path case and of InternLM2's views."""
-    main = internlm = None
+    """Each case bit-equal to the plain version; returns {"main",
+    "internlm", "granite"}: the rows of the main-path case and of
+    InternLM2's and granite's views."""
+    rows = {}
+    named = {INTERNLM_PAGED: "internlm", GRANITE_PAGED: "granite"}
     for s, p, psz, trailing, dtype in PAGED_CASES:
         n = s * p
         # the decoder's store: n pages and a sink page, gathered as [:-1]
@@ -993,10 +1042,10 @@ def check_paged_gather(ref, kern, gen):
                    library_ms=lib_ms, bound_ms=bms, bound_by=by)
         emit(**row)
         if (s, p, dtype) == (64, 128, torch.bfloat16):
-            main = row
-        if (s, p, psz, trailing, dtype) == INTERNLM_PAGED:
-            internlm = row
-    return main, internlm
+            rows["main"] = row
+        if (s, p, psz, trailing, dtype) in named:
+            rows[named[(s, p, psz, trailing, dtype)]] = row
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2737,25 +2786,35 @@ LM_STAGE_FIELDS = ("gap_o", "eps_o", "delta", "scale", "conf_o", "conf_s",
                    "conf_o32", "gap_s", "eff")
 
 
-def lm_stage_record(eng, table32, s, h_o, logits, conf, eff, h_s):
-    """One stage of one oracle decision beside the served path's at the
-    same context: the oracle's own top-2 logit gap (its bf16 logits)
-    and their distance from float32 logits of its hidden row (``eps_o``);
-    the served and the oracle's hidden rows through the one float32
-    head: their largest logit difference (``delta``), the largest logit
-    (``scale``), the served conf and top-2 gap; the oracle's conf and
-    tau' (-1 at the final stage, which always accepts)."""
-    lo = logits.float()[0]
-    l32 = lm_head32(eng, table32, h_o[:1], s)[0]
-    ls = lm_head32(eng, table32, h_s[None], s)[0]
-    top_o = lo.topk(2).values
-    top_s = ls.topk(2).values
+def lm_stage_records(eng, table32, s, h_o, logits, conf, eff, h_s):
+    """One stage of oracle decisions, row by row, beside the served
+    path's at the same context: the oracle's own top-2 logit gap (its
+    bf16 logits) and their distance from float32 logits of its hidden
+    row (``eps_o``); the served and the oracle's hidden rows through the
+    one float32 head: their largest logit difference (``delta``), the
+    largest logit (``scale``), the served conf and top-2 gap; the
+    oracle's conf and tau' (-1 at the final stage, which always
+    accepts).  Returns one dict a row."""
+    lo = logits.float()
+    l32 = lm_head32(eng, table32, h_o, s)
+    ls = lm_head32(eng, table32, h_s, s)
+    top_o = lo.topk(2, dim=-1).values
+    top_s = ls.topk(2, dim=-1).values
     vals = torch.stack([
-        top_o[0] - top_o[1], (lo - l32).abs().max(), (ls - l32).abs().max(),
-        l32.abs().max(), conf[0].float(), torch.softmax(ls, -1).max(),
-        torch.softmax(l32, -1).max(), top_s[0] - top_s[1],
-        eff[0].float() if eff is not None else lo.new_tensor(-1.0)])
-    return dict(zip(LM_STAGE_FIELDS, vals.cpu().tolist()))
+        top_o[:, 0] - top_o[:, 1], (lo - l32).abs().amax(-1),
+        (ls - l32).abs().amax(-1), l32.abs().amax(-1), conf.float(),
+        torch.softmax(ls, -1).amax(-1), torch.softmax(l32, -1).amax(-1),
+        top_s[:, 0] - top_s[:, 1],
+        eff.float() if eff is not None else lo.new_full((len(lo),), -1.0)],
+        dim=1)
+    return [dict(zip(LM_STAGE_FIELDS, row)) for row in vals.cpu().tolist()]
+
+
+def lm_stage_record(eng, table32, s, h_o, logits, conf, eff, h_s):
+    """``lm_stage_records`` of the first oracle row against the served
+    row ``h_s`` (d,)."""
+    return lm_stage_records(eng, table32, s, h_o[:1], logits[:1], conf[:1],
+                            None if eff is None else eff[:1], h_s[None])[0]
 
 
 def lm_replay(eng, reqs, results, view_len, served, width):
@@ -2922,10 +2981,10 @@ def profile_window(step, steps):
                 for e in top]}, kern
 
 
-def lm_profile(eng, reqs, n_slots, steps=8):
+def lm_profile(eng, reqs, n_slots, steps=8, max_len=1024):
     """``profile_window`` over decode steps with a full pool, and the
     exit heads' share of the device time."""
-    dec = eng.continuous(n_slots=n_slots, page_size=8, max_len=1024)
+    dec = eng.continuous(n_slots=n_slots, page_size=8, max_len=max_len)
     for tag, p, n in reqs[:n_slots]:
         dec.admit(p, n, tag=tag)
     dec.step()
@@ -2950,15 +3009,21 @@ def lm_launches(eng, steps):
     return counts
 
 
-def lm_strict():
-    """Full TinyLlama width and depth in fp32: the continuous decoder
-    (kernels) against the eager oracle (plain head), decision by
-    decision (``lm_decisions``)."""
+def tinyllama(**kw):
+    """TinyLlama-1.1B's published config at LM_TINYLLAMA_LAYERS layers
+    (exits at its fractions of depth), with ``kw`` replaced."""
     from repro_torch.configs.tinyllama_1_1b import CONFIG
+    return dataclasses.replace(CONFIG, n_layers=LM_TINYLLAMA_LAYERS,
+                               exit_layers=LM_TINYLLAMA_EXITS, **kw)
+
+
+def lm_strict():
+    """TinyLlama at full width and LM_TINYLLAMA_LAYERS in fp32: the
+    continuous decoder (kernels) against the eager oracle (plain head),
+    decision by decision (``lm_decisions``)."""
     from repro_torch.kernels import dispatch
 
-    cfg = dataclasses.replace(CONFIG, param_dtype=torch.float32,
-                              compute_dtype=torch.float32)
+    cfg = tinyllama(param_dtype=torch.float32, compute_dtype=torch.float32)
     eng = lm_engine(cfg)
     rs = np.random.RandomState(1)
     tau = lm_calibrate(eng, rs)
@@ -3105,10 +3170,9 @@ def lm_step1_against_cpu(cfg, tc, data, seq):
 
 
 def lm_train():
-    """TinyLlama-1.1B at full width and depth trained through ``Trainer``
-    (bf16, remat, AdamW) on synth-tokens; returns (config, trained
-    params)."""
-    from repro_torch.configs.tinyllama_1_1b import CONFIG
+    """TinyLlama-1.1B at full width and LM_TINYLLAMA_LAYERS trained
+    through ``Trainer`` (bf16, remat, AdamW) on synth-tokens; returns the
+    trained params."""
     from repro_torch.convert import leaves
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.kernels import dispatch
@@ -3116,7 +3180,7 @@ def lm_train():
     from repro_torch.runtime.trainer import TrainConfig, Trainer
 
     t_start = time.perf_counter()
-    cfg = dataclasses.replace(CONFIG, max_seq=LM_TRAIN_SEQ)
+    cfg = tinyllama(max_seq=LM_TRAIN_SEQ)
     data = lm_token_data()
     tc = TrainConfig(batch_size=LM_TRAIN_BATCH, steps=LM_TRAIN_STEPS,
                      lr=LM_TRAIN_LR, warmup=LM_TRAIN_WARMUP, log_every=1)
@@ -3391,14 +3455,14 @@ def lm_session(params):
     continuous session under an open-loop stream, held to the eager
     oracle; (b) the bucketed session against ``generate``; (c) the pooled
     session through an engine death."""
-    from repro_torch.configs.tinyllama_1_1b import CONFIG
     from repro_torch.core.routing import DartParams
     from repro_torch.engine.lm import LMDecodeEngine
 
     t_start = time.perf_counter()
     data = lm_token_data()
-    e = CONFIG.n_exits - 1
-    eng = LMDecodeEngine(CONFIG, params, DartParams(
+    cfg = tinyllama()
+    e = cfg.n_exits - 1
+    eng = LMDecodeEngine(cfg, params, DartParams(
         tau=torch.full((e,), 2.0), coef=torch.ones(e), beta_diff=LM_BETA))
     rs = np.random.RandomState(LM_SESSION_SEED)
     reqs = lm_prompts(data, rs, LM_SESSION_REQUESTS, LM_TRAIN_DATA_VOCAB)
@@ -3415,7 +3479,8 @@ def lm_session(params):
     cmp = lm_decisions("lm-session (a)", reqs, results, lm_replay(
         eng, reqs, results, view_len, served, LM_SESSION_SLOTS), "bfloat16")
     del served
-    emit(phase="lm-session", part="a", model=CONFIG.name, dtype="bfloat16",
+    emit(phase="lm-session", part="a", model=cfg.name, dtype="bfloat16",
+         layers=cfg.n_layers, exits=list(cfg.exit_layers),
          weights="trained in the lm-train phase", tau=tau.tolist(),
          beta_diff=LM_BETA, n_slots=LM_SESSION_SLOTS, max_len=1024,
          load=LM_SESSION_LOAD,
@@ -3423,11 +3488,11 @@ def lm_session(params):
          oracle_agreement=cmp, phase_s=time.perf_counter() - t_start)
     part_b = lm_buckets_against_generate(
         eng, lm_bucket_requests(data, rs, LM_TRAIN_DATA_VOCAB))
-    emit(phase="lm-session", part="b", model=CONFIG.name, **part_b,
+    emit(phase="lm-session", part="b", model=cfg.name, **part_b,
          phase_s=time.perf_counter() - t_start)
     part_c = lm_pooled(eng, lm_bucket_requests(data, rs,
                                                LM_TRAIN_DATA_VOCAB))
-    emit(phase="lm-session", part="c", model=CONFIG.name, **part_c,
+    emit(phase="lm-session", part="c", model=cfg.name, **part_c,
          phase_s=time.perf_counter() - t_start)
     del eng
     torch.cuda.empty_cache()
@@ -3435,17 +3500,19 @@ def lm_session(params):
 
 
 def lm_internlm():
-    """InternLM2-20B at its published width and depth (48 layers, d_model
-    6144, 48/8 heads, d_ff 16384, vocab 92544; bf16, seeded random
-    weights drawn on the card) through ``ContinuousLMDecoder`` at 16
-    slots, max_len 512."""
+    """InternLM2-20B at its published width (d_model 6144, 48/8 heads,
+    d_ff 16384, vocab 92544) and LM_INTERNLM_LAYERS of its 48 layers
+    (bf16, seeded random weights drawn on the card) through
+    ``ContinuousLMDecoder`` at 16 slots, max_len 512."""
     from repro_torch.configs import registry
     from repro_torch.convert import leaves
     from repro_torch.kernels import dispatch
     from repro_torch.models.transformer_lm import lm_param_count
 
     t_start = time.perf_counter()
-    cfg = registry.get("internlm2-20b")
+    cfg = dataclasses.replace(registry.get("internlm2-20b"),
+                              n_layers=LM_INTERNLM_LAYERS,
+                              exit_layers=LM_INTERNLM_EXITS)
     torch.cuda.reset_peak_memory_stats()
     eng = lm_engine(cfg)
     n_params = sum(t.numel() for t in leaves(eng.params))
@@ -3494,7 +3561,7 @@ def lm_internlm():
 
 def lm_internlm_fp32(cfg, held):
     """A witness beside lm-internlm's oracle check (which holds the
-    served bf16 path at full depth itself): InternLM2-20B at full width
+    served bf16 path itself): InternLM2-20B at full width
     in float32, cut to LM_INTERNLM_FP32_LAYERS layers (its exits at the
     same fractions of depth), the same requests through
     ``ContinuousLMDecoder`` against the eager oracle, checked as the
@@ -3516,6 +3583,353 @@ def lm_internlm_fp32(cfg, held):
     return {"layers": cut.n_layers, "exits": list(cut.exit_layers),
             "dtype": "float32", "tau": tau.tolist(), "decode_steps": steps,
             "oracle_agreement": cmp}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: granite-moe-3b-a800m, the MoE FFN
+# ---------------------------------------------------------------------------
+
+def lm_step_replay(eng, dec, href, pref):
+    """The step-replay oracle of a continuous decoder, for a MoE model:
+    there a row's output depends on which rows share each MoE call (the
+    capacity drops the later pairs of a busy expert), and the eager
+    oracle of ``lm_replay`` routes the compacted survivors of each stage
+    instead of the whole slot pool.  ``dec.step`` is wrapped: before
+    each served step the pool's state is kept (pages, tokens, positions,
+    active, fresh, page table, alpha and the engine state); after it,
+    the same continuous step runs again from that state with the plain
+    versions of ``exit_head`` and ``paged_gather`` (``href``, ``pref``)
+    and the served step's fire pattern imposed at every stage, so that
+    CALM propagation, and with it every row's routing, is the served
+    one.  Every stage's hidden rows must equal the served ones bit for
+    bit.  The plain head's own conf, pred and fire give the oracle's
+    decision for each active row on the served context, with a
+    ``lm_stage_records`` record at every stage.  Returns (replay
+    {(tag, step): (token, stage, {stage: record})} as ``lm_replay``
+    gives it; counts: steps, rows, steps with an idle slot below an
+    active one, MoE pairs the replayed steps dropped; undo)."""
+    from repro_torch.kernels import dispatch as KD
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.transformer_lm import _unembed_table
+
+    table = _unembed_table(eng.params, eng.cfg)
+    table32 = table.float()
+    dev = eng.device
+    out = {}
+    counts = {"steps": 0, "rows": 0, "idle_below_active": 0}
+    dropped = torch.zeros((), dtype=torch.long, device=dev)
+    served_step = dec.step
+    served_head = eng._head_traced
+    moe_apply = MOE.moe_apply
+
+    def norm(name):
+        return eng.params["final_norm"] if name == "final" \
+            else eng.params["exit_heads"][name]["norm"]
+
+    def counted_moe(p, x, cfg, **kw):
+        ids = MOE._route(x.reshape(-1, x.shape[-1]), p["router"], cfg)[1]
+        dropped.add_((~MOE.dispatch_plan(ids, cfg)["keep"]).sum())
+        return moe_apply(p, x, cfg, **kw)
+
+    def step():
+        if not dec.active.any():
+            return served_step()
+        held = {}
+        for slot, (rid, row) in dec._slot_req.items():
+            if dec.active[slot]:
+                rec = dec._requests[rid]
+                held[slot] = (rec["tag"], len(rec["toks"][row]))
+        host = {k: torch.as_tensor(getattr(dec, k).copy(), device=dev)
+                for k in ("tokens", "fresh", "pos", "active", "page_table")}
+        snap = ([{k: v.clone() for k, v in layer.items()}
+                 for layer in dec.pages], dec.alpha.clone(), eng.state)
+        served = []
+
+        def capture(params, h, exit_name, eff):
+            conf, pred, fire = served_head(params, h, exit_name, eff)
+            served.append((h.clone(), fire.clone()))
+            return conf, pred, fire
+
+        eng._head_traced = capture
+        try:
+            events = served_step()
+        finally:
+            del eng._head_traced
+        kept = (dec.pages, dec.alpha, eng.state)
+        dec.pages, dec.alpha, eng.state = snap
+        plain = []
+
+        def replay(params, h, exit_name, eff):
+            scale = norm(exit_name)["scale"]
+            conf, pred, fire = href.ref_exit_head_gate(h, scale, table, eff)
+            plain.append((h, plain_head_logits(h, scale, table), conf, pred,
+                          fire, eff))
+            return conf, pred, served[len(plain) - 1][1]
+
+        eng._head_traced = replay
+        gather = KD.paged_gather
+        KD.paged_gather = pref.ref_paged_gather
+        MOE.moe_apply = counted_moe
+        try:
+            x = dec._embed_step(host["tokens"].long(), host["fresh"])
+            dec._decode_step(x, host["pos"], host["active"],
+                             host["page_table"])
+        finally:
+            MOE.moe_apply = moe_apply
+            KD.paged_gather = gather
+            del eng._head_traced
+            dec.pages, dec.alpha, eng.state = kept
+        check(len(plain) == len(served) == eng.n_exits,
+              "step replay: not one head call a stage")
+        for s, ((h_s, _), (h_o, *_)) in enumerate(zip(served, plain)):
+            check(torch.equal(h_s, h_o), f"step replay: stage {s}'s hidden "
+                  "rows differ from the served step's")
+        slots = sorted(held)
+        idx = torch.as_tensor(slots, device=dev)
+        recs, fires, preds = [], [], []
+        for s, (h_o, logits, conf, pred, fire, eff) in enumerate(plain):
+            recs.append(lm_stage_records(eng, table32, s, h_o[idx],
+                                         logits[idx], conf[idx], eff[idx],
+                                         served[s][0][idx]))
+            fires.append(fire[idx].cpu().numpy() > 0)
+            preds.append(pred[idx].cpu().numpy())
+        last = eng.n_exits - 1
+        for i, slot in enumerate(slots):
+            own_s = next(s for s in range(eng.n_exits)
+                         if s == last or fires[s][i])
+            out[held[slot]] = (int(preds[own_s][i]), own_s,
+                               {s: recs[s][i] for s in range(eng.n_exits)})
+        counts["steps"] += 1
+        counts["rows"] += len(slots)
+        counts["idle_below_active"] += int(len(slots) < max(slots) + 1)
+        return events
+
+    def undo():
+        dec.__dict__.pop("step", None)
+        counts["moe_pairs_dropped"] = int(dropped)
+
+    dec.step = step
+    return out, counts, undo
+
+
+def moe_capture(fn):
+    """``fn()`` with the input rows of every ``moe_apply`` call recorded
+    in call order (a layer's call follows the one before it).  Returns
+    (fn's result, [(T, D) rows])."""
+    from repro_torch.models import moe as MOE
+
+    inner = MOE.moe_apply
+    rows = []
+
+    def traced(p, x, cfg, **kw):
+        rows.append(x.reshape(-1, x.shape[-1]).clone())
+        return inner(p, x, cfg, **kw)
+
+    MOE.moe_apply = traced
+    try:
+        return fn(), rows
+    finally:
+        MOE.moe_apply = inner
+
+
+def moe_card_check(eng, rows, layers, what):
+    """The port's bf16 ``moe_apply`` on captured input rows of
+    ``layers`` against a per-token reference built apart from it: top-k
+    from the router in float64 on the host, the kept pairs from the
+    capacity rule in numpy, and y_t = sum over t's kept pairs of p *
+    W_down(silu(W_gate x) * W_up x) in float32 (TF32 off).  The kept
+    sets must be equal; where a token's k-th and (k+1)-th router
+    probabilities lie within twice the largest float32-vs-float64
+    probability difference of the call, the reference takes the port's
+    choice, and such tokens are counted.  Each token's output must be
+    within ``tol`` of sum_j p_j max|y_j| (its scale): ``tol`` is the
+    dense SwiGLU's measured error at this shape (expert 0's weights on
+    the same rows, bf16 against float32, as a share of each row's
+    largest) plus (k + 1) bf16 roundings (2^-8 each): the probability's
+    cast, its product and the k - 1 adds of the combine."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+
+    m = eng.cfg.moe
+    k = m.top_k
+    res = []
+    for layer in layers:
+        x = rows[layer]
+        p = eng.params["layers"][layer]["moe"]
+        t = x.shape[0]
+        y, _ = MOE.moe_apply(p, x, m)
+        _, ids, _ = MOE._route(x, p["router"], m)
+        plan = MOE.dispatch_plan(ids, m)
+        keep = plan["keep"].cpu().numpy()
+        port_kept = {(int(a), int(b)) for a, b, c in zip(
+            plan["s_tok"].cpu().numpy(), plan["s_eid"].cpu().numpy(), keep)
+            if c}
+        lg = x.double().cpu().numpy() @ p["router"].double().cpu().numpy()
+        pr = np.exp(lg - lg.max(1, keepdims=True))
+        pr /= pr.sum(1, keepdims=True)
+        p32 = torch.softmax(x.float() @ p["router"].float(), -1).cpu().numpy()
+        ptol = 2 * float(np.abs(p32 - pr).max())
+        order = np.argsort(-pr, axis=1, kind="stable")
+        srt = np.take_along_axis(pr, order, 1)
+        near = srt[:, k - 1] - srt[:, k] <= ptol
+        ids_ref = order[:, :k].copy()
+        port_ids = ids.cpu().numpy()
+        differ = [i for i in range(t)
+                  if set(ids_ref[i]) != set(port_ids[i])]
+        check(all(near[i] for i in differ),
+              f"moe check {what} layer {layer}: top-k differs from float64 "
+              f"outside near-ties at tokens {differ[:5]}")
+        ids_ref[differ] = port_ids[differ]
+        cap = MOE.capacity(t, m)
+        load, kept = {}, set()
+        for tok in range(t):
+            for e in ids_ref[tok]:
+                load[e] = load.get(e, 0) + 1
+                if load[e] <= cap:
+                    kept.add((tok, int(e)))
+        check(kept == port_kept, f"moe check {what} layer {layer}: kept "
+              f"pairs differ ({len(kept ^ port_kept)})")
+        p_ref = np.take_along_axis(pr, ids_ref, 1)
+        p_ref /= p_ref.sum(1, keepdims=True)
+        y_ref = torch.zeros(t, x.shape[1], dtype=torch.float32,
+                            device=x.device)
+        scale = torch.zeros(t, dtype=torch.float32, device=x.device)
+        for e in range(m.n_experts):
+            pairs = [(tok, j) for tok in range(t) for j in range(k)
+                     if ids_ref[tok, j] == e and (tok, e) in kept]
+            if not pairs:
+                continue
+            toks = torch.as_tensor([a for a, _ in pairs], device=x.device)
+            w = torch.as_tensor([p_ref[a, b] for a, b in pairs],
+                                dtype=torch.float32, device=x.device)
+            xe = x[toks].float()
+            h = torch.nn.functional.silu(xe @ p["w_gate"][e].float()) \
+                * (xe @ p["w_up"][e].float())
+            ye = h @ p["w_down"][e].float()
+            y_ref.index_add_(0, toks, w[:, None] * ye)
+            scale.index_add_(0, toks, w * ye.abs().amax(-1))
+        err = (y.float() - y_ref).abs().amax(-1)
+        routed = scale > 0
+        check(bool((err[~routed] == 0).all()), f"moe check {what} layer "
+              f"{layer}: a token whose every pair was dropped is not 0")
+        share = float((err[routed] / scale[routed]).max())
+        dense = {n: {"w": p[f"w_{n}"][0]} for n in ("gate", "up", "down")}
+        d32 = {n: {"w": v["w"].float()} for n, v in dense.items()}
+        yd = L.swiglu(dense, x).float()
+        yd32 = L.swiglu(d32, x.float())
+        dense_share = float(((yd - yd32).abs().amax(-1)
+                             / yd32.abs().amax(-1)).max())
+        tol = dense_share + (k + 1) * 2.0 ** -8
+        check(share <= tol, f"moe check {what} layer {layer}: {share} of "
+              f"the scale > {tol}")
+        res.append({"layer": layer, "tokens": t, "capacity": cap,
+                    "pairs": t * k, "dropped": t * k - len(kept),
+                    "near_ties": int(near.sum()),
+                    "near_ties_taken_from_port": len(differ),
+                    "prob_tol": ptol, "err_share": share,
+                    "dense_err_share": dense_share, "tol": tol})
+    return res
+
+
+def lm_granite(href, pref):
+    """granite-moe-3b-a800m at its published width and depth (32 layers,
+    d_model 1536, 24/8 heads, 40 experts top-8 of d_ff 512, vocab 49155;
+    bf16, seeded random weights drawn on the card) through
+    ``ContinuousLMDecoder`` at 16 slots, page 8, max_len 512, requests
+    admitted FIFO.  One run is held decision by decision to the
+    step-replay oracle (``lm_step_replay``); a second, from a fresh
+    pool, is timed and must decide the same; then the profile, and the
+    independent MoE check (``moe_card_check``) on one served decode
+    step's and one prefill's MoE inputs."""
+    from repro_torch.configs import registry
+    from repro_torch.convert import leaves
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer_lm as TLM
+
+    t_start = time.perf_counter()
+    cfg = registry.get("granite-moe-3b-a800m")
+    torch.cuda.reset_peak_memory_stats()
+    eng = lm_engine(cfg)
+    n_params = sum(t.numel() for t in leaves(eng.params))
+    check(n_params == TLM.lm_param_count(cfg) + cfg.n_exits * cfg.d_model,
+          f"lm-granite: {n_params} parameters")
+    init_s = time.perf_counter() - t_start
+    rs = np.random.RandomState(6)
+    tau = lm_calibrate(eng, rs)
+    reqs = lm_requests(rs, LM_GRANITE_REQUESTS, cfg.vocab)
+    pool = dict(n_slots=LM_GRANITE_SLOTS, page_size=8,
+                max_len=LM_GRANITE_MAX_LEN)
+
+    t_oracle = time.perf_counter()
+    dec = eng.continuous(**pool)
+    replay, rcounts, undo = lm_step_replay(eng, dec, href, pref)
+    results, _, _, _ = lm_drive(dec, reqs)
+    undo()
+    cmp = lm_decisions("lm-granite", reqs, results, replay, "bfloat16")
+    del replay, dec
+    oracle_s = time.perf_counter() - t_oracle
+
+    dec = eng.continuous(**pool)
+    dispatch.reset_launch_counts()
+    timed, steps, secs, admit_s = lm_drive(dec, reqs)
+    counts = lm_launches(eng, steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.array_equal(timed[t][0], results[t][0])
+              and np.array_equal(timed[t][1], results[t][1])
+              for t, _, _ in reqs),
+          "lm-granite: the timed run decided otherwise than the oracle's")
+    tokens = sum(n for _, _, n in reqs)
+    stages = np.concatenate([timed[t][1] for t, _, _ in reqs])
+    view_len = dec.view_len
+    del dec
+    profiled = lm_profile(eng, reqs, LM_GRANITE_SLOTS,
+                          max_len=LM_GRANITE_MAX_LEN)
+
+    layers = (0, cfg.exit_layers[0], cfg.n_layers - 1)
+    dec = eng.continuous(**pool)
+    for tag, p, n in reqs[:LM_GRANITE_SLOTS]:
+        dec.admit(p, n, tag=tag)
+    _, step_rows = moe_capture(dec.step)
+    del dec
+    prompt = torch.as_tensor(
+        np.random.RandomState(7).randint(0, cfg.vocab,
+                                         (1, LM_GRANITE_PREFILL)),
+        device="cuda")
+    cache = TLM.lm_init_cache(cfg, 1, LM_GRANITE_PREFILL, device="cuda")
+    _, prefill_rows = moe_capture(
+        lambda: TLM.lm_prefill(eng.params, prompt, cfg, cache))
+    check(len(step_rows) == len(prefill_rows) == cfg.n_layers,
+          "lm-granite: not one MoE call a layer")
+    moe = {"decode_step": moe_card_check(eng, step_rows, layers,
+                                         "decode step"),
+           "prefill": moe_card_check(eng, prefill_rows, layers, "prefill")}
+    check(sum(r["dropped"] for r in moe["prefill"]) > 0,
+          "lm-granite: the prefill dropped no MoE pair")
+    del step_rows, prefill_rows, cache
+    exit_counts = np.bincount(stages, minlength=eng.n_exits).tolist()
+    layer_fraction = float(eng.cum_costs[stages].mean())
+    emit(phase="lm-granite", model=cfg.name, dtype="bfloat16",
+         nvidia_smi=nvidia_smi(), params=n_params,
+         active_params_per_token=TLM.lm_active_param_count(cfg),
+         layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads],
+         experts=[cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff],
+         vocab=cfg.vocab, exits=list(cfg.exit_layers), tau=tau.tolist(),
+         beta_diff=LM_BETA, n_slots=LM_GRANITE_SLOTS,
+         max_len=LM_GRANITE_MAX_LEN, view_len=view_len,
+         requests=len(reqs), tokens=tokens, decode_steps=steps,
+         seconds=secs, tokens_per_s=tokens / secs,
+         decode_step_ms=1e3 * (secs - admit_s) / steps,
+         admit_prefill_ms_per_request=1e3 * admit_s / len(reqs),
+         exit_counts=exit_counts, mean_layer_fraction=layer_fraction,
+         launches=counts,
+         launches_per_step={k: v / steps for k, v in counts.items()},
+         peak_memory_gb=peak_gb, init_s=init_s, profile=profiled,
+         oracle=rcounts, oracle_s=oracle_s, oracle_agreement=cmp,
+         moe_check=moe, phase_s=time.perf_counter() - t_start)
+    del eng
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -3564,8 +3978,9 @@ def main() -> int:
     gate_err, gate_floor = check_exit_gate(gref, gkern, gen)
     softmax_err = check_softmax_confidence(gen)
     diff_err = check_difficulty(dref, dkern, gen, DEFAULT)
-    head_err, head_main, head_internlm = check_exit_head(href, hkern, gen)
-    paged_main, paged_internlm = check_paged_gather(pref, pkern, gen)
+    head_err, head = check_exit_head(href, hkern, gen)
+    paged = check_paged_gather(pref, pkern, gen)
+    head_main, paged_main = head["main"], paged["main"]
 
     vgg, _ = drive_engine(VGG16_CIFAR, "vgg16-cifar", CIFAR, offset=2000)
     drive_engine(ALEXNET_CIFAR, "alexnet-cifar", CIFAR, offset=6000)
@@ -3627,6 +4042,7 @@ def main() -> int:
     del trained
     torch.cuda.empty_cache()
     internlm_launches = lm_internlm()
+    granite_launches = lm_granite(href, pref)
 
     # main-path shapes: one 1024-row bucket, 10 classes / 32x32x3 images
     lg, th, _ = gate_inputs(1024, 10, gen, 10)
@@ -3702,9 +4118,11 @@ def main() -> int:
          "launches": lm["launches"]["exit_head"], "max_abs_err": head_err,
          "lm_session_launches": session_launches["exit_head"],
          "internlm_launches": internlm_launches["exit_head"],
-         "internlm": {k: head_internlm[k] for k in (
+         "granite_launches": granite_launches["exit_head"],
+         **{name: {k: head[name][k] for k in (
              "shape", "dtype", "ms", "plain_ms", "gemm_floor_ms",
-             "bound_ms", "bound_by", "bound_fraction")},
+             "bound_ms", "bound_by", "bound_fraction")}
+            for name in ("internlm", "granite")},
          "ms": head_main["ms"],
          "plain_ms": head_main["plain_ms"],
          "bound_ms": head_main["bound_ms"],
@@ -3720,9 +4138,10 @@ def main() -> int:
          "launches": lm["launches"]["paged_gather"], "max_abs_err": 0.0,
          "lm_session_launches": session_launches["paged_gather"],
          "internlm_launches": internlm_launches["paged_gather"],
-         "internlm": {k: paged_internlm[k] for k in (
+         "granite_launches": granite_launches["paged_gather"],
+         **{name: {k: paged[name][k] for k in (
              "shape", "table", "dtype", "ms", "plain_ms", "library_ms",
-             "bound_ms", "bound_by")},
+             "bound_ms", "bound_by")} for name in ("internlm", "granite")},
          "ms": paged_main["ms"], "plain_ms": paged_main["plain_ms"],
          "bound_ms": paged_main["bound_ms"],
          "bound_by": paged_main["bound_by"],

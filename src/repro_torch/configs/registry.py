@@ -20,13 +20,13 @@ ASSIGNED = {
     "convnext-b": "repro_torch.configs.convnext_b",
     "resnet-152": "repro_torch.configs.resnet_152",
     "vit-s16": "repro_torch.configs.vit_s16",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
 }
 
 #: assigned ids not ported yet, and the ROADMAP queue 1 item that ports
 #: each
 NOT_PORTED = {
-    "granite-moe-3b-a800m": "item 6b (the MoE path)",
-    "deepseek-v3-671b": "item 6b (the MLA, MoE and MTP paths)",
+    "deepseek-v3-671b": "item 6c (MLA and MTP)",
     "dit-s2": "item 8 (dit.py)",
     "dit-xl2": "item 8 (dit.py)",
 }

@@ -17,12 +17,15 @@ models flatten NHWC before a fully connected layer, so no FC row needs
 permuting.  The LM tree (``models/transformer_lm.py``: embed, layers'
 norms, attention and SwiGLU weights, final and exit-head norms, the
 untied unembedding) keeps the JAX einsum layouts and needs no transpose;
-neither do the 1-D batchnorm leaves.  bfloat16 leaves (numpy's
+neither do the 1-D batchnorm leaves, nor a MoE layer's leaves (``router``
+(D, E), ``w_gate`` / ``w_up`` (E, D, F), ``w_down`` (E, F, D); stacked
+(L, E, D, F) under ``layer_scan``: no conv key ``"w"``).  bfloat16 leaves (numpy's
 ``ml_dtypes`` type) arrive as torch bfloat16.  The result is checked
 against the port's own init for the same config, leaf by leaf: shapes,
 so a tree of the wrong architecture raises, and dtypes, which are
 ``cfg.param_dtype`` except for the batchnorm running statistics
-(``mean``, ``var``), kept in float32 whatever the param dtype.
+(``mean``, ``var``) and the MoE router, kept in float32 whatever the
+param dtype.
 
 ``restore_checkpoint`` reads a checkpoint of either package into a tree
 of the port (a trainer's ``state_tree()``, an ``EngineState``): the

@@ -65,7 +65,9 @@ def _stages(cfg):
 def _stage_apply(params, x, cache_sl, cache_index, *, cfg, a, b):
     """Run layers [a, b) for one decode position.  x: (B', 1, D);
     cache_sl: the caches of exactly these layers, for these rows
-    (written in place)."""
+    (written in place).  A MoE layer routes the B' rows of this call
+    together: which rows share a call (the compacted survivors and
+    their pad rows) is part of what a row's output depends on."""
     cos, sin = L.rope_freqs(cfg.hd, cache_sl[0]["k"].shape[1],
                             cfg.rope_theta, device=x.device)
     new_sl = []
@@ -75,7 +77,7 @@ def _stage_apply(params, x, cache_sl, cache_index, *, cfg, a, b):
                               sin, cache_sl[j], cache_index)
         new_sl.append(c)
         x = x + att
-        x = x + L.swiglu(p["ffn"], L.rmsnorm(p["ffn_norm"], x))
+        x = x + TLM.ffn_apply(p, L.rmsnorm(p["ffn_norm"], x), cfg)[0]
     return x, new_sl
 
 
@@ -85,7 +87,8 @@ def _stage_apply_paged(params, x, pages_sl, page_table, page_idx, offset,
     store — the continuous-batching mirror of :func:`_stage_apply`.
     x: (S, 1, D), the whole slot pool; ``positions`` is per slot, so rows
     at different depths share one pass; ``page_idx`` is the write page
-    per slot (out of range for rows that must not write)."""
+    per slot (out of range for rows that must not write).  A MoE layer
+    routes every slot, idle and fired ones too, in slot order."""
     psz = pages_sl[0]["k"].shape[1]
     view_len = page_table.shape[1] * psz
     cos, sin = L.rope_freqs(cfg.hd, view_len, cfg.rope_theta,
@@ -98,7 +101,7 @@ def _stage_apply_paged(params, x, pages_sl, page_table, page_idx, offset,
                                     page_idx, offset, positions)
         new_sl.append(c)
         x = x + att
-        x = x + L.swiglu(p["ffn"], L.rmsnorm(p["ffn_norm"], x))
+        x = x + TLM.ffn_apply(p, L.rmsnorm(p["ffn_norm"], x), cfg)[0]
     return x, new_sl
 
 
@@ -537,7 +540,11 @@ class ContinuousLMDecoder:
     step at (page, offset).  Tokens and exit stages match the eager
     oracle run at ``max_len=dec.view_len`` row for row, up to rows whose
     decision lies at a near-tie (the step's matmuls run over other batch
-    shapes than the oracle's, which may round differently).
+    shapes than the oracle's, which may round differently).  In a MoE
+    model they need not match: the step routes all slots together (idle
+    ones and rows that fired too) where the oracle routes the compacted
+    survivors, and an expert past its capacity drops other pairs in
+    each.
     """
 
     def __init__(self, engine: LMDecodeEngine, *, n_slots=None,

@@ -1,27 +1,32 @@
-"""LLaMA-family language models with early-exit heads (dense GQA path).
+"""LLaMA-family language models with early-exit heads (GQA attention,
+dense or MoE FFN).
 
-The port of ``repro/models/transformer_lm.py`` for the dense GQA
-configs (TinyLlama-1.1B, InternLM2-20B): the config, the init (per
-layer, or with ``layer_scan`` the layers between exits stacked into
-``"segments"``), the full forward with ``remat`` and chunked attention,
-the Eq. 18 multi-exit loss over a chunked-vocabulary cross-entropy, the
-KV cache with prefill (also per stacked segment) and one-token decode,
-the exit heads (RMSNorm + unembedding), the CALM KV propagation of an
-exited row, and the analytic parameter and FLOP counts.  MLA, MoE and
-the MTP head are ROADMAP queue 1, item 6b: a config asking for them
-raises.
+The port of ``repro/models/transformer_lm.py`` for the GQA configs
+(TinyLlama-1.1B, InternLM2-20B, and granite-moe-3b-a800m with a MoE FFN
+in every layer past ``n_dense_layers``, ``models/moe.py``): the config,
+the init (per layer, or with ``layer_scan`` the layers between exits
+stacked into ``"segments"`` after the unstacked dense prefix), the full
+forward with ``remat`` and chunked attention, the Eq. 18 multi-exit
+loss over a chunked-vocabulary cross-entropy plus the MoE load-balance
+loss, the KV cache with prefill (also per stacked segment) and
+one-token decode, the exit heads (RMSNorm + unembedding), the CALM KV
+propagation of an exited row, and the analytic parameter and FLOP
+counts.  MLA attention and the MTP head are ROADMAP queue 1, item 6c: a
+config asking for them raises.
 
 Parameters are a dict tree in the JAX layout (``convert.from_jax_params``
 maps the JAX tree onto it without transposes):
 
     embed.table (V, D); layers[i].{attn_norm, ffn_norm}.scale (D,);
     layers[i].attn.{wq (D, H, Dh), wk, wv (D, Hkv, Dh), wo (H, Dh, D)};
-    layers[i].ffn.{gate, up}.w (D, F), ffn.down.w (F, D);
+    layers[i].ffn.{gate, up}.w (D, F), ffn.down.w (F, D) in a dense
+    layer, layers[i].moe.{router (D, E) float32, w_gate, w_up (E, D, F),
+    w_down (E, F, D)} in a MoE layer;
     final_norm.scale; exit_heads[str(layer)].norm.scale; unembed (V, D)
     when the embeddings are untied.  Under ``layer_scan``,
     ``segments[k]`` holds the layers of ``scan_segments(cfg)[k]`` with
-    each leaf stacked on a new leading axis (L_k, ...), and ``layers`` is
-    empty.
+    each leaf stacked on a new leading axis (L_k, ...), and ``layers``
+    holds the ``n_dense_layers`` leading dense layers.
 
 A "scan" here is a Python loop over the stacked leading axis; ``remat``
 wraps each layer in ``torch.utils.checkpoint`` (recomputed in the
@@ -36,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as DEV
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,15 +67,18 @@ class LMConfig:
     # stack the layers between exit boundaries into "segments", run as a
     # loop over the stacked axis (train and prefill paths only)
     layer_scan: bool = False
-    attn_kind: str = "gqa"                 # "mla": ROADMAP item 6b
-    moe: object = None                     # a MoE config: item 6b
-    mtp: bool = False                      # multi-token prediction: 6b
+    attn_kind: str = "gqa"                 # "mla": ROADMAP item 6c
+    moe: MOE.MoEConfig | None = None
+    moe_ep_mode: str = "ep"                # mesh layouts: item 9
+    n_dense_layers: int = 0                # leading dense layers
+    moe_dispatch: str = "ar"               # mesh dispatch: item 9
+    mtp: bool = False                      # multi-token prediction: 6c
 
     def __post_init__(self):
-        if self.attn_kind != "gqa" or self.moe is not None or self.mtp:
+        if self.attn_kind != "gqa" or self.mtp:
             raise NotImplementedError(
-                f"{self.name}: MLA attention, MoE layers and the MTP head "
-                "are not ported yet (ROADMAP queue 1, item 6b)")
+                f"{self.name}: MLA attention and the MTP head are not "
+                "ported yet (ROADMAP queue 1, item 6c)")
 
     @property
     def hd(self) -> int:
@@ -78,6 +87,9 @@ class LMConfig:
     @property
     def n_exits(self) -> int:
         return len(self.exit_layers) + 1   # + final head
+
+    def layer_is_moe(self, i: int) -> bool:
+        return self.moe is not None and i >= self.n_dense_layers
 
 
 # ---------------------------------------------------------------------------
@@ -103,9 +115,9 @@ def _ones(dim, cfg, device):
     return {"scale": torch.ones(dim, dtype=cfg.param_dtype, device=device)}
 
 
-def _layer_init(gen, cfg: LMConfig, device):
+def _layer_init(gen, cfg: LMConfig, device, i: int):
     d, hd = cfg.d_model, cfg.hd
-    return {
+    p = {
         "attn_norm": _ones(d, cfg, device),
         "ffn_norm": _ones(d, cfg, device),
         "attn": {
@@ -113,19 +125,27 @@ def _layer_init(gen, cfg: LMConfig, device):
             "wk": _trunc((d, cfg.n_kv_heads, hd), gen, 0.02, cfg, device),
             "wv": _trunc((d, cfg.n_kv_heads, hd), gen, 0.02, cfg, device),
             "wo": _trunc((cfg.n_heads, hd, d), gen, 0.02, cfg, device)},
-        "ffn": {
+    }
+    if cfg.layer_is_moe(i):
+        p["moe"] = MOE.moe_init(gen, d, cfg.moe, cfg.param_dtype,
+                                device=device)
+    else:
+        p["ffn"] = {
             "gate": {"w": _trunc((d, cfg.d_ff), gen, 0.02, cfg, device)},
             "up": {"w": _trunc((d, cfg.d_ff), gen, 0.02, cfg, device)},
-            "down": {"w": _trunc((cfg.d_ff, d), gen, 0.02, cfg, device)}},
-    }
+            "down": {"w": _trunc((cfg.d_ff, d), gen, 0.02, cfg, device)}}
+    return p
 
 
 def scan_segments(cfg: LMConfig) -> list[tuple[int, int]]:
-    """[start, end) layer ranges of the stacked segments (exit boundaries
-    split them, so every exit lands between two segments).  The JAX
-    package keeps its MoE configs' leading dense layers unstacked; every
-    config here is dense, so the segments start at layer 0."""
-    bounds = [0] + [e + 1 for e in sorted(cfg.exit_layers)] + [cfg.n_layers]
+    """[start, end) layer ranges of the stacked segments: from the first
+    layer past the ``n_dense_layers`` leading dense ones (kept unstacked,
+    as in JAX), split at the exit boundaries so every exit lands between
+    two segments."""
+    bounds = [cfg.n_dense_layers]
+    bounds += [e + 1 for e in sorted(cfg.exit_layers)
+               if e + 1 > cfg.n_dense_layers]
+    bounds.append(cfg.n_layers)
     return [(a, b) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
 
 
@@ -153,7 +173,7 @@ def lm_init(cfg: LMConfig, *, seed: int = 0, device=None):
     meta = device is not None and torch.device(device).type == "meta"
     dev = torch.device("meta") if meta else DEV.resolve(device)
     gen = _generator(seed, dev)
-    layers = [_layer_init(gen, cfg, dev) for _ in range(cfg.n_layers)]
+    layers = [_layer_init(gen, cfg, dev, i) for i in range(cfg.n_layers)]
     p = {
         "embed": {"table": _trunc((cfg.vocab, cfg.d_model), gen, 0.01, cfg,
                                   dev)},
@@ -165,7 +185,7 @@ def lm_init(cfg: LMConfig, *, seed: int = 0, device=None):
     if not cfg.tie_embeddings:
         p["unembed"] = _trunc((cfg.vocab, cfg.d_model), gen, 0.02, cfg, dev)
     if cfg.layer_scan:
-        p["layers"] = []
+        p["layers"] = layers[:cfg.n_dense_layers]
         p["segments"] = [_stack(layers[a:b]) for a, b in scan_segments(cfg)]
     return p
 
@@ -174,17 +194,29 @@ def lm_init(cfg: LMConfig, *, seed: int = 0, device=None):
 # Forward and the Eq. 18 training loss
 # ---------------------------------------------------------------------------
 
+def ffn_apply(p, h, cfg: LMConfig):
+    """The FFN of one layer on its normed input: the MoE of a MoE layer
+    (the layer's tree has "moe"), else the dense SwiGLU.  Returns (out,
+    the MoE load-balance loss, None in a dense layer)."""
+    if "moe" in p:
+        return MOE.moe_apply(p["moe"], h, cfg.moe, ep_mode=cfg.moe_ep_mode,
+                             dispatch=cfg.moe_dispatch)
+    return L.swiglu(p["ffn"], h), None
+
+
 def _layer_apply(p, x, cos, sin, cfg: LMConfig):
     h = L.rmsnorm(p["attn_norm"], x)
     x = x + L.gqa_apply(p["attn"], h, cos, sin, causal=True,
                         chunked=cfg.attn_chunked, q_chunk=cfg.q_chunk,
                         kv_chunk=cfg.kv_chunk)
-    return x + L.swiglu(p["ffn"], L.rmsnorm(p["ffn_norm"], x))
+    f, aux = ffn_apply(p, L.rmsnorm(p["ffn_norm"], x), cfg)
+    return x + f, aux
 
 
 def _layer_fn(cfg: LMConfig):
-    """One layer, recomputed in the backward pass under ``remat`` (only
-    where autograd records: a no-grad forward has nothing to save)."""
+    """One layer, returning (x, aux), recomputed in the backward pass
+    under ``remat`` (only where autograd records: a no-grad forward has
+    nothing to save)."""
     if cfg.remat and torch.is_grad_enabled():
         return lambda p, x, cos, sin: checkpoint(
             _layer_apply, p, x, cos, sin, cfg, use_reentrant=False)
@@ -193,8 +225,8 @@ def _layer_fn(cfg: LMConfig):
 
 def _layer_params(params, cfg: LMConfig):
     """(layer index, layer params) in depth order, for either tree."""
+    yield from enumerate(params["layers"])
     if not cfg.layer_scan:
-        yield from enumerate(params["layers"])
         return
     for k, (a, b) in enumerate(scan_segments(cfg)):
         for j in range(b - a):
@@ -204,23 +236,25 @@ def _layer_params(params, cfg: LMConfig):
 def lm_forward(params, token_ids, cfg: LMConfig, *, collect_exits=True):
     """Full forward of (B, S) tokens.  Returns a dict with
     ``exit_hidden`` — list of (B, S, D), one per early exit and the
-    final one; ``aux_loss`` — the MoE load-balance scalar (0 for these
-    dense configs); ``final_hidden``.  Exit logits are left to the loss
-    (the vocabulary projection is the expensive part; chunked there)."""
+    final one; ``aux_loss`` — the MoE load-balance loss summed over the
+    layers (0 for a dense config); ``final_hidden``.  Exit logits are
+    left to the loss (the vocabulary projection is the expensive part;
+    chunked there)."""
     s = token_ids.shape[1]
     cos, sin = L.rope_freqs(cfg.hd, max(s, cfg.max_seq), cfg.rope_theta,
                             device=token_ids.device)
     x = L.embed(params["embed"], token_ids).to(cfg.compute_dtype)
     layer = _layer_fn(cfg)
     exit_hidden = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in _layer_params(params, cfg):
-        x = layer(p, x, cos, sin)
+        x, aux = layer(p, x, cos, sin)
+        if aux is not None:
+            aux_total = aux_total + aux
         if collect_exits and i in cfg.exit_layers:
             exit_hidden.append(x)
     exit_hidden.append(x)
-    return {"exit_hidden": exit_hidden,
-            "aux_loss": torch.zeros((), dtype=torch.float32,
-                                    device=x.device),
+    return {"exit_hidden": exit_hidden, "aux_loss": aux_total,
             "final_hidden": x}
 
 
@@ -336,7 +370,7 @@ def lm_prefill(params, token_ids, cfg: LMConfig, cache):
                         kv_chunk=cfg.kv_chunk)
         _fill_cache_gqa(p["attn"], h, cos, sin, cache[i])
         x = x + a
-        x = x + L.swiglu(p["ffn"], L.rmsnorm(p["ffn_norm"], x))
+        x = x + ffn_apply(p, L.rmsnorm(p["ffn_norm"], x), cfg)[0]
         if i in cfg.exit_layers:
             exit_h.append(x[:, -1])
     exit_h.append(x[:, -1])
@@ -346,9 +380,9 @@ def lm_prefill(params, token_ids, cfg: LMConfig, cache):
 def lm_prefill_scan(params, token_ids, cfg: LMConfig):
     """Prefill of a ``layer_scan`` tree: the caches of a stacked segment
     come out stacked (L_k, B, S, Hkv, Dh), as JAX's scan ys.  Returns
-    (the unstacked layers' caches, [] here as in JAX for a dense config;
-    the segments' caches, a list of stacked {"k", "v"}; exit hidden
-    states at the last position list[(B, D)])."""
+    (the unstacked dense prefix's caches, a list of {"k", "v"}; the
+    segments' caches, a list of stacked {"k", "v"}; exit hidden states
+    at the last position list[(B, D)])."""
     s = token_ids.shape[1]
     cos, sin = L.rope_freqs(cfg.hd, max(s, cfg.max_seq), cfg.rope_theta,
                             device=token_ids.device)
@@ -363,10 +397,15 @@ def lm_prefill_scan(params, token_ids, cfg: LMConfig):
                          cos, sin)
         v = torch.einsum("bsd,dhk->bshk", hn, p["attn"]["wv"])
         h = h + a
-        h = h + L.swiglu(p["ffn"], L.rmsnorm(p["ffn_norm"], h))
+        h = h + ffn_apply(p, L.rmsnorm(p["ffn_norm"], h), cfg)[0]
         return h, {"k": k, "v": v}
 
-    exit_h, seg_caches = [], []
+    dense_caches, exit_h, seg_caches = [], [], []
+    for i, p in enumerate(params["layers"]):
+        x, cache = layer_with_cache(p, x)
+        dense_caches.append(cache)
+        if i in cfg.exit_layers:
+            exit_h.append(x[:, -1])
     for k, (a, bnd) in enumerate(scan_segments(cfg)):
         ys = []
         for j in range(bnd - a):
@@ -377,7 +416,7 @@ def lm_prefill_scan(params, token_ids, cfg: LMConfig):
         if (bnd - 1) in cfg.exit_layers:
             exit_h.append(x[:, -1])
     exit_h.append(x[:, -1])
-    return [], seg_caches, exit_h
+    return dense_caches, seg_caches, exit_h
 
 
 def lm_decode_step(params, token_ids, cache, cache_index: int,
@@ -397,7 +436,7 @@ def lm_decode_step(params, token_ids, cache, cache_index: int,
         a, _ = L.gqa_decode(p["attn"], L.rmsnorm(p["attn_norm"], x), cos,
                             sin, cache[i], cache_index)
         x = x + a
-        x = x + L.swiglu(p["ffn"], L.rmsnorm(p["ffn_norm"], x))
+        x = x + ffn_apply(p, L.rmsnorm(p["ffn_norm"], x), cfg)[0]
         if i in cfg.exit_layers:
             exit_h.append(x[:, 0])
     exit_h.append(x[:, 0])
@@ -449,21 +488,38 @@ def lm_kv_propagate(params, h_exit, cfg: LMConfig, cache, cache_index,
 
 
 # ---------------------------------------------------------------------------
-# Analytic parameter and FLOP counts (dense GQA)
+# Analytic parameter and FLOP counts
 # ---------------------------------------------------------------------------
 
+def _moe_params(cfg: LMConfig) -> int:
+    m = cfg.moe
+    return (cfg.d_model * m.n_experts
+            + (m.n_experts + m.n_shared) * 3 * cfg.d_model * m.d_ff)
+
+
 def lm_param_count(cfg: LMConfig) -> int:
+    """Parameters but the final and exit-head norms, as JAX counts."""
     d, v = cfg.d_model, cfg.vocab
     emb = v * d
     attn = d * cfg.hd * (cfg.n_heads + 2 * cfg.n_kv_heads) \
         + cfg.n_heads * cfg.hd * d
     total = emb if cfg.tie_embeddings else 2 * emb
-    return total + cfg.n_layers * (attn + 2 * d + 3 * d * cfg.d_ff)
+    for i in range(cfg.n_layers):
+        total += attn + 2 * d
+        total += (_moe_params(cfg) if cfg.layer_is_moe(i)
+                  else 3 * d * cfg.d_ff)
+    return total
 
 
 def lm_active_param_count(cfg: LMConfig) -> int:
-    """Parameters a token uses: all of them in a dense config."""
-    return lm_param_count(cfg)
+    """Parameters a token uses: all of them in a dense config; a MoE
+    layer's top-k and shared experts only."""
+    if cfg.moe is None:
+        return lm_param_count(cfg)
+    m = cfg.moe
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    return lm_param_count(cfg) \
+        - n_moe * (m.n_experts - m.top_k) * 3 * cfg.d_model * m.d_ff
 
 
 def lm_forward_flops(cfg: LMConfig, batch: int, seq: int,
@@ -475,12 +531,16 @@ def lm_forward_flops(cfg: LMConfig, batch: int, seq: int,
     d, t = cfg.d_model, batch * seq
     h, hd, kv = cfg.n_heads, cfg.hd, cfg.n_kv_heads
     attn_ctx = kv_len if kv_len is not None else seq / 2
-    per_layer = (2 * t * d * hd * (h + 2 * kv) + 2 * t * h * hd * d
-                 + 2 * 2 * t * h * hd * attn_ctx + t * 3 * 2 * d * cfg.d_ff)
+    attn = (2 * t * d * hd * (h + 2 * kv) + 2 * t * h * hd * d
+            + 2 * 2 * t * h * hd * attn_ctx)
+    fl = 0
+    for i in range(cfg.n_layers):
+        fl += attn
+        fl += (MOE.moe_flops(t, d, cfg.moe) if cfg.layer_is_moe(i)
+               else t * 3 * 2 * d * cfg.d_ff)
     n_heads_out = (n_exits_computed if n_exits_computed is not None
                    else cfg.n_exits)
-    return int(cfg.n_layers * per_layer
-               + n_heads_out * 2 * t * d * cfg.vocab)
+    return int(fl + n_heads_out * 2 * t * d * cfg.vocab)
 
 
 def lm_train_flops(cfg: LMConfig, batch: int, seq: int) -> int:

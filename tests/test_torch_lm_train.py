@@ -310,8 +310,9 @@ def test_param_and_flop_counts_match_jax(arch):
 
 def test_registry_has_internlm2_and_refuses_item_6b():
     """``internlm2-20b`` resolves to the JAX package's config (every
-    field the port has), at full and REDUCED width; the MLA, MoE and MTP
-    configs raise, naming item 6b."""
+    field the port has), at full and REDUCED width; the MLA and MTP
+    configs, left of item 6b when its MoE half was ported, raise naming
+    item 6c, and a MoE config is taken."""
     for get, jget in ((REG.get, jREG.get),
                       (REG.get_reduced, jREG.get_reduced)):
         cfg, jcfg = get("internlm2-20b"), jget("internlm2-20b")
@@ -324,9 +325,10 @@ def test_registry_has_internlm2_and_refuses_item_6b():
     for arch in REG.NOT_PORTED:
         with pytest.raises(KeyError, match="item"):
             REG.get(arch)
-    for kw in ({"attn_kind": "mla"}, {"moe": object()}, {"mtp": True}):
-        with pytest.raises(NotImplementedError, match="item 6b"):
+    for kw in ({"attn_kind": "mla"}, {"mtp": True}):
+        with pytest.raises(NotImplementedError, match="item 6c"):
             dataclasses.replace(REG.get_reduced("tinyllama-1.1b"), **kw)
+    assert REG.get("granite-moe-3b-a800m").moe is not None
 
 
 def test_convert_takes_the_stacked_segments():

@@ -612,11 +612,11 @@ def test_later_slice_options_raise(option, item, tmp_path):
         return
     if option == "lm":
         # the dense LM trains since item 6a (test_torch_lm_train.py holds
-        # it to JAX); MLA, MoE and MTP configs still raise (item 6b)
+        # it to JAX); MLA and MTP configs still raise (item 6c)
         tr = Trainer(cfg, tc, DATA, **kw)
         x = np.random.RandomState(0).randint(0, 64, (2, 33))
         assert np.isfinite(tr.train_step((x, np.zeros(2, np.int32))))
-        with pytest.raises(NotImplementedError, match="item 6b"):
+        with pytest.raises(NotImplementedError, match="item 6c"):
             dataclasses.replace(cfg, attn_kind="mla")
         return
     match = f"ROADMAP queue 1, item {item}"
